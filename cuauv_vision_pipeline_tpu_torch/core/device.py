@@ -1,0 +1,42 @@
+"""Device selection for the port's entry points.
+
+Entry points run on CUDA unless the caller asks for the CPU explicitly; with
+no CUDA device and no explicit ``cpu`` they raise instead of carrying on
+quietly on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(spec: Optional[Union[str, int, torch.device]] = None) -> torch.device:
+    """``None`` -> ``cuda:0``; ``N`` or ``"N"`` -> ``cuda:N``; ``"cpu"`` ->
+    the CPU; a ``torch.device`` or ``"cuda:N"`` as given. Raises
+    RuntimeError when CUDA is asked for (by default) but unavailable, or
+    the ordinal is out of range."""
+    if isinstance(spec, torch.device):
+        device = spec
+    elif spec is None:
+        device = torch.device("cuda", 0)
+    elif isinstance(spec, int) or str(spec).isdigit():
+        device = torch.device("cuda", int(spec))
+    else:
+        device = torch.device(str(spec))
+    if device.type == "cpu":
+        return device
+    if device.type != "cuda":
+        raise RuntimeError(f"unsupported device {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass --device cpu to run on the host"
+        )
+    index = 0 if device.index is None else device.index
+    if not 0 <= index < torch.cuda.device_count():
+        raise RuntimeError(
+            f"device cuda:{index} out of range: this host has "
+            f"{torch.cuda.device_count()} CUDA device(s)"
+        )
+    return torch.device("cuda", index)

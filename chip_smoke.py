@@ -14,13 +14,19 @@ no result):
              library times at the main path's 1080p shapes.
 4. chain   — the red_buoy chain (RedBuoyPipeline) at 1080p on the card vs
              the plain chain on the CPU, per-frame and batched-8, with and
-             without ``CUAUV_FUSED_MORPH=1``; per-frame and batched fps.
-5. module  — the real entry points as subprocesses: the synthetic ``zed``
-             camera and ``modules.red_buoy zed``; checks
+             without ``CUAUV_FUSED_MORPH=1``; per-frame and batched fps over
+             repeated windows of a few seconds (median, min, max), with the
+             kernel wrapper calls per frame.
+5. module  — the real entry points as subprocesses: the synthetic camera
+             (``--scene zed``, the ZED's four planes) and
+             ``modules.red_buoy``, both on a direction named for this run
+             and with ``CUAUV_SHM_NAMESPACE`` set to this run's own
+             namespace, so another run on the machine shares no bus block,
+             tuner block or shm group with this one; checks
              ``shm.red_buoy_results`` under default tuners (whole frame) and
              after ``thresh_min=140`` (the red disc) set through the
              ModuleReader, reads ``latency_ms`` and the module's CCL launch
-             count.
+             count, then removes the blocks and groups this run made.
 
 Launch counts are set to 0 just before the chain phase and read after the
 module phase (plus the module process's own logged counts): that is the
@@ -39,17 +45,23 @@ import subprocess
 import sys
 import threading
 import time
+import uuid
 from pathlib import Path
 
 import torch
 
 REPO = Path(__file__).resolve().parent
 H, W = 1080, 1920
+FPS_WINDOW_S = 2.0  # one throughput window
+FPS_REPEATS = 5
 # device-memory rates by card (bytes/s): NVIDIA data sheets
 _MEM_RATE = {"PCIe": 2.0e12, "HBM3": 3.35e12, "SXM": 3.35e12}
-# float32 peak outside the tensor cores (NVIDIA data sheet, SXM), taken as the
-# rate of the kernels' 32-bit integer operations
-_OPS_RATE = 67e12
+# the kernels' operations are 32-bit integer ones; a Hopper SM issues INT32
+# on 64 of its 128 FP32 lanes per clock, so its INT32 peak is half the
+# data sheet's 67 T/s float32 rate outside the tensor cores (SXM)
+_OPS_RATE = 67e12 / 2
+# CUDA launches behind one wrapper call (csrc/ccl.cu: init, merge, compress)
+CUDA_LAUNCHES_PER_CALL = {"label_cuda": 3, "label_cuda_batched": 3, "fused_morph": 1}
 
 
 def emit(phase: str, **fields) -> None:
@@ -246,24 +258,53 @@ def phase_chain(dev, frames):
         grew = launch_counts()["fused_morph"] - before
         assert (grew > 0) == (fused == "1"), f"fused_morph launches grew by {grew} with CUAUV_FUSED_MORPH={fused}"
 
-        n = 50
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for k in range(n):
-            pipe.run_async(frames[k % 8], 140, 255)
-        torch.cuda.synchronize()
-        out[f"fps_per_frame_fused{fused}"] = n / (time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        for _ in range(n // 5):
-            pipe.run_async_batched(stack, 140, 255)
-        torch.cuda.synchronize()
-        out[f"fps_batched8_fused{fused}"] = 8 * (n // 5) / (time.perf_counter() - t0)
+    # throughput: the composed and fused morphology alternate within each
+    # repeat, so drift of the card or the host hits both alike
+    lanes = {"per_frame": (lambda k: pipe.run_async(frames[k % 8], 140, 255), 1),
+             "batched8": (lambda k: pipe.run_async_batched(stack, 140, 255), 8)}
+    fps: dict = {}
+    calls: dict = {}
+    for _ in range(FPS_REPEATS):
+        for fused in ("0", "1"):
+            os.environ["CUAUV_FUSED_MORPH"] = fused
+            for lane, (step, per_step) in lanes.items():
+                key = f"{lane}_fused{fused}"
+                rate, calls[key] = fps_window(step, per_step, FPS_WINDOW_S)
+                fps.setdefault(key, []).append(rate)
     os.environ["CUAUV_FUSED_MORPH"] = "0"
+    out["fps"] = {k: {"median": statistics.median(v), "min": min(v), "max": max(v), "windows": v}
+                  for k, v in fps.items()}
+    out["fps_window_s"] = FPS_WINDOW_S
+    # fused / composed morphology, repeat by repeat
+    out["fused_over_composed"] = {
+        lane: [b / a for a, b in zip(fps[f"{lane}_fused0"], fps[f"{lane}_fused1"])] for lane in lanes}
+    out["wrapper_calls_per_frame"] = calls
+    out["cuda_launches_per_frame"] = {
+        key: {k: n * CUDA_LAUNCHES_PER_CALL[k] for k, n in c.items()} for key, c in calls.items()}
     for tmin in (140, 0):  # the red disc; the default tuners' whole frame
         wall_ms = cuda_ms(lambda: pipe.run_async(frames[0], tmin, 255), 50)
         out[f"profile_thresh_min_{tmin}"] = profile_chain(pipe, frames, tmin, wall_ms)
     emit("chain", **out)
     return out
+
+
+def fps_window(step, frames_per_step: int, seconds: float):
+    """Frames/s of ``step(k)`` called back to back for ``seconds`` (the card
+    synchronised at both ends), and the kernel wrapper calls per frame."""
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import launch_counts
+
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    while time.perf_counter() - t0 < seconds:
+        step(n)
+        n += 1
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    after = launch_counts()
+    frames = n * frames_per_step
+    return frames / elapsed, {k: (after[k] - before[k]) / frames for k in after}
 
 
 def profile_chain(pipe, frames, tmin, wall_ms, n=20):
@@ -296,14 +337,21 @@ def profile_chain(pipe, frames, tmin, wall_ms, n=20):
 
 
 def phase_module():
+    # this run's own names: the camera's direction (so the bus block and the
+    # module's post and tuner blocks) and the shm namespace of its groups
+    run_id = uuid.uuid4().hex[:12]
+    direction = f"smoke_{run_id}"
+    os.environ["CUAUV_SHM_NAMESPACE"] = f"smoke-{run_id}"
     from cuauv_vision_pipeline_tpu_torch.core import shm
     from cuauv_vision_pipeline_tpu_torch.core.base import ModuleReader
+    from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BLOCK_STUB
 
     logs = REPO / "smoke_logs"
     logs.mkdir(parents=True, exist_ok=True)
     env = {**os.environ, "PYTHONPATH": str(REPO), "CUAUV_FUSED_MORPH": "0"}
     results = shm.red_buoy_results
     results.set(visible=False, area=0.0, latency_ms=0.0)
+    module_name = f"BuoyLAB-on-{direction}"
     procs = []
 
     def start(args, name):
@@ -327,14 +375,16 @@ def phase_module():
     out = {}
     reader = None
     try:
-        start(["cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic", "zed",
+        # the zed scene sends the ZED's planes (forward, forward2, depth,
+        # normal) under any direction; the module's chain binds "forward"
+        start(["cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic", direction,
                "--scene", "zed", "--fps", "30"], "source")
-        module = start(["cuauv_vision_pipeline_tpu_torch.modules.red_buoy", "zed"], "module")
+        module = start(["cuauv_vision_pipeline_tpu_torch.modules.red_buoy", direction], "module")
         wait_for(lambda: results.visible.get(), 180, "the first detection")
         wait_for(lambda: results.area.get() == H * W, 10, "a whole-frame area")
         out["area_default_tuners"] = results.area.get()
-        wait_for(lambda: "BuoyLAB-on-zed" in ModuleReader.get_active_modules(), 30, "tuner blocks")
-        reader = ModuleReader("BuoyLAB-on-zed")
+        wait_for(lambda: module_name in ModuleReader.get_active_modules(), 30, "tuner blocks")
+        reader = ModuleReader(module_name)
         reader.run_forever(fps=30)
         reader.update_tuner_value("thresh_min", 140)
         wait_for(lambda: 20000 < results.area.get() < 27000, 30, "the disc's area")
@@ -365,6 +415,12 @@ def phase_module():
                     p.kill()
                     p.wait()
             log.close()
+        # what a process left behind, and the groups: all named for this run
+        left = [*Path(BLOCK_STUB).parent.glob(Path(BLOCK_STUB).name + f"*{direction}*"),
+                *Path(shm.group_path("*")).parent.glob(Path(shm.group_path("*")).name)]
+        for path in left:
+            path.unlink(missing_ok=True)
+        out["removed"] = sorted(p.name for p in left)
     emit("module", **out)
     return out
 

@@ -41,6 +41,7 @@ from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Tuple
 
 SHM_STUB = "/dev/shm/auv_shm_"
+NAMESPACE_ENV = "CUAUV_SHM_NAMESPACE"
 _MAGIC = b"AUVSHM1\x00"
 _HEADER_FMT = "<8sQI"  # magic, seq, schema_len
 _HEADER_SIZE = struct.calcsize(_HEADER_FMT)
@@ -58,6 +59,15 @@ _TYPE_DEFAULT: Dict[str, Any] = {
     "bool": False,
     "string": "",
 }
+
+
+def group_path(name: str) -> str:
+    """The backing file of group ``name``. With ``CUAUV_SHM_NAMESPACE=<ns>``
+    set when the group is first opened, the file is ``auv_shm_<name>@<ns>``:
+    runs that must not share results (two checkouts on one machine, a test
+    next to a live module) each get their own groups, byte layout unchanged."""
+    namespace = os.environ.get(NAMESPACE_ENV, "")
+    return SHM_STUB + name + (f"@{namespace}" if namespace else "")
 
 
 def _coerce(type_name: str, value: Any) -> Any:
@@ -94,7 +104,7 @@ class Group:
 
     def __init__(self, name: str, schema: Optional[Dict[str, Any]] = None):
         self._name = name
-        self._path = SHM_STUB + name
+        self._path = group_path(name)
         # RLock: writers hold it across _maybe_reattach (which also takes
         # it) so field offsets can't go stale between reattach and write
         self._lock = threading.RLock()
@@ -554,13 +564,13 @@ _cache_lock = threading.Lock()
 
 
 def group(name: str, schema: Optional[Dict[str, Any]] = None) -> Group:
-    """Open (or create) a group by name."""
+    """Open (or create) a group by name, in the current namespace."""
     with _cache_lock:
-        existing = _group_cache.get(name)
+        existing = _group_cache.get(group_path(name))
         if existing is not None:
             return existing
         g = Group(name, schema)
-        _group_cache[name] = g
+        _group_cache[group_path(name)] = g
         return g
 
 
@@ -572,9 +582,9 @@ def define_group(name: str, schema: Dict[str, Any]) -> Group:
 def delete_group(name: str) -> None:
     """Remove a group's backing file (e.g. misc/yolo_shm.py --delete)."""
     with _cache_lock:
-        _group_cache.pop(name, None)
+        _group_cache.pop(group_path(name), None)
     try:
-        os.unlink(SHM_STUB + name)
+        os.unlink(group_path(name))
     except FileNotFoundError:
         pass
 

@@ -79,9 +79,9 @@ class RedBuoyPipeline:
     def run_async(self, image, tmin, tmax) -> Result:
         return red_buoy_fused(self._on_device(image), tmin, tmax, self.max_components)
 
-    def run_async_batched(self, images, tmin, tmax) -> Result:
-        """[B, H, W, 3] -> per-lane (threshed, cleaned, best), one CCL launch."""
-        return red_buoy_fused(self._on_device(images), tmin, tmax, self.max_components)
+    # [B, H, W, 3] -> per-lane (threshed, cleaned, best): the chain takes the
+    # batch dimension itself, so the batched lane is the same call
+    run_async_batched = run_async
 
     def run_sync(self, image, tmin, tmax):
         """run_async, materialized as numpy (blocking)."""

@@ -45,15 +45,52 @@ def private_results(monkeypatch):
     tshm.delete_group(name)
 
 
+def _drive(source, module, delivered) -> None:
+    """Run ``source`` and ``module`` in threads until three detections are
+    delivered (or 30 s pass), then stop both."""
+    src_thread = threading.Thread(target=source.run_event_loop)
+    src_thread.start()
+    time.sleep(0.3)
+    quit_flag = threading.Event()
+    try:
+        with module._module_manager:
+            loop = threading.Thread(target=module._loop, args=(quit_flag, log.t))
+            loop.start()
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline and len(delivered) < 3:
+                time.sleep(0.05)
+            quit_flag.set()
+            loop.join(timeout=10)
+            assert not loop.is_alive()
+    finally:
+        source.quit_flag.set()
+        src_thread.join(timeout=10)
+
+
+def _check_delivered(delivered, results) -> None:
+    """The default tuners (0-255) take the whole frame; each detection that
+    carries posts (a batched dispatch posts its newest lane only) equals the
+    chain on its frame."""
+    assert len(delivered) >= 3, "module never delivered detections"
+    assert results.visible.get()
+    assert results.area.get() == 144 * 256
+    assert all(best["area"] == 144 * 256 for best, _ in delivered)
+    posted = [(best, posts) for best, posts in delivered if posts]
+    assert posted, "no detection carried posts"
+    for best, posts in posted:
+        frame = torch.from_numpy(np.array(posts["image"]))
+        want_t, want_c, want = red_buoy_fused(frame, 0, 255)
+        np.testing.assert_array_equal(posts["threshed"], want_t.numpy())
+        np.testing.assert_array_equal(posts["threshed_cleaned"], want_c.numpy())
+        for key in want:
+            np.testing.assert_array_equal(best[key], want[key].numpy(), err_msg=key)
+
+
 def test_red_buoy_module_product_path(unique_direction, private_results):
     """Port synthetic source -> bus -> port BuoyLAB (device chain on the
     CPU) -> shm; each delivered detection equals the chain on its frame."""
     _, results = private_results
     source = Synthetic(unique_direction, width=256, height=144, fps=60)
-    src_thread = threading.Thread(target=source.run_event_loop)
-    src_thread.start()
-    time.sleep(0.3)
-
     delivered = []
 
     class Buoy(red_buoy.BuoyLAB):
@@ -72,31 +109,27 @@ def test_red_buoy_module_product_path(unique_direction, private_results):
     module = Buoy([unique_direction], red_buoy.module_tuners, fps=30,
                   argv=["--device", "cpu"])
     assert module.device == torch.device("cpu")
-    quit_flag = threading.Event()
-    try:
-        with module._module_manager:
-            loop = threading.Thread(target=module._loop, args=(quit_flag, log.t))
-            loop.start()
-            deadline = time.monotonic() + 30
-            while time.monotonic() < deadline and len(delivered) < 3:
-                time.sleep(0.05)
-            quit_flag.set()
-            loop.join(timeout=10)
-            assert not loop.is_alive()
-    finally:
-        source.quit_flag.set()
-        src_thread.join(timeout=10)
+    _drive(source, module, delivered)
+    _check_delivered(delivered, results)
 
-    assert len(delivered) >= 3, "module never delivered detections"
-    assert results.visible.get()
-    assert results.area.get() == 144 * 256  # default tuners: whole frame
-    for best, posts in delivered:
-        frame = torch.from_numpy(np.array(posts["image"]))
-        want_t, want_c, want = red_buoy_fused(frame, 0, 255)
-        np.testing.assert_array_equal(posts["threshed"], want_t.numpy())
-        np.testing.assert_array_equal(posts["threshed_cleaned"], want_c.numpy())
-        for key in want:
-            np.testing.assert_array_equal(best[key], want[key].numpy(), err_msg=key)
+
+def test_red_buoy_module_on_zed_planes_of_any_direction(unique_direction, private_results):
+    """The unmodified module's ``zed[forward]`` chain binds the forward plane
+    of a zed-scene camera whatever its direction is named, so a run can use
+    a direction of its own (as chip_smoke.py does)."""
+    _, results = private_results
+    source = Synthetic(unique_direction, width=256, height=144, fps=60, scene="zed")
+    delivered = []
+
+    class Buoy(red_buoy.BuoyLAB):
+        def on_device_result(self, best, posts, meta):
+            delivered.append((best, posts))
+            super().on_device_result(best, posts, meta)
+
+    module = Buoy([unique_direction], red_buoy.module_tuners, fps=30,
+                  argv=["--device", "cpu"])
+    _drive(source, module, delivered)
+    _check_delivered(delivered, results)
 
 
 def test_module_refuses_to_start_without_cuda(monkeypatch, private_results):
@@ -132,6 +165,30 @@ def test_shm_group_bytes_shared_with_jax():
     finally:
         tshm.delete_group(name)
         jshm.delete_group(name)
+
+
+def test_shm_namespace_keeps_groups_apart(monkeypatch):
+    """``CUAUV_SHM_NAMESPACE`` gives a run its own group file, laid out as
+    the shared one: the JAX reader decodes it under the suffixed name."""
+    name = f"test_group_{uuid.uuid4().hex[:12]}"
+    namespace = uuid.uuid4().hex[:8]
+    shared = tshm.define_group(name, tshm.DEFAULT_GROUPS["red_buoy_results"])
+    monkeypatch.setenv(tshm.NAMESPACE_ENV, namespace)
+    own = tshm.define_group(name, tshm.DEFAULT_GROUPS["red_buoy_results"])
+    try:
+        assert own is not shared
+        assert Path(tshm.group_path(name)).name == f"auv_shm_{name}@{namespace}"
+        shared.set(visible=False, area=1.0)
+        own.set(visible=True, area=23450.0, latency_ms=3.5)
+        assert shared.area.get() == 1.0 and not shared.visible.get()
+        got = jshm.group(f"{name}@{namespace}").get()
+        assert got.visible is True and got.area == 23450.0 and got.latency_ms == 3.5
+    finally:
+        jshm.delete_group(f"{name}@{namespace}")
+        tshm.delete_group(name)
+        monkeypatch.delenv(tshm.NAMESPACE_ENV)
+        tshm.delete_group(name)
+    assert not Path(tshm.group_path(name)).exists()
 
 
 def test_port_imports_no_jax_in_a_fresh_process():

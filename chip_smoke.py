@@ -10,13 +10,17 @@ no result):
 2. build   — builds the frame bus (g++) and every kernel of ``csrc/`` (nvcc,
              one per source, in parallel) from this checkout.
 3. kernels — each CUDA kernel against its plain PyTorch version on the same
-             card tensors, exact equality required; then kernel, plain and
-             library times at the main path's 1080p shapes.
+             card tensors, exact equality required, CCL cases launched twice
+             (equal reruns), among them components across the kernel's
+             32x32 tile seams; then kernel, plain and library times at the
+             main path's 1080p shapes.
 4. chain   — the red_buoy chain (RedBuoyPipeline) at 1080p on the card vs
              the plain chain on the CPU, per-frame and batched-8, with and
              without ``CUAUV_FUSED_MORPH=1``; per-frame and batched fps over
-             repeated windows of a few seconds (median, min, max), with the
-             kernel wrapper calls per frame.
+             repeated windows of a few seconds (median, min, max) at the
+             disc threshold with both morphologies and at the default
+             tuners' whole frame (composed morphology), with the kernel
+             wrapper calls per frame.
 5. module  — the real entry points as subprocesses: the synthetic camera
              (``--scene zed``, the ZED's four planes) and
              ``modules.red_buoy``, both on a direction named for this run
@@ -30,8 +34,9 @@ no result):
 
 Launch counts are set to 0 just before the chain phase and read after the
 module phase (plus the module process's own logged counts): that is the
-main path's run. Then a ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, "device": ...}`` line.
+main path's run. Then the CCL kernels' device time per call (torch.profiler)
+beside their event-timed wall time, a ``{"kernels": [...]}`` line and, last,
+the ``{"ok": true, "device": ...}`` line.
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ _MEM_RATE = {"PCIe": 2.0e12, "HBM3": 3.35e12, "SXM": 3.35e12}
 # on 64 of its 128 FP32 lanes per clock, so its INT32 peak is half the
 # data sheet's 67 T/s float32 rate outside the tensor cores (SXM)
 _OPS_RATE = 67e12 / 2
-# CUDA launches behind one wrapper call (csrc/ccl.cu: init, merge, compress)
+# CUDA launches behind one wrapper call (csrc/ccl.cu: local, border, final)
 CUDA_LAUNCHES_PER_CALL = {"label_cuda": 3, "label_cuda_batched": 3, "fused_morph": 1}
 
 
@@ -92,6 +97,31 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int = 20):
+    """The CUDA kernels' own device time per call of ``fn`` (torch.profiler,
+    kernel events summed), and its split by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {e.key[:60]: e.self_device_time_total / 1e3 / n
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return sum(by_name.values()), by_name
+
+
+def seam_lines(shape, axis: int, dev):
+    """One-pixel lines across the image on the CCL kernel's 32x32 tile
+    seams, alternately on a tile's first and last row (axis 0) or column."""
+    at = [k * 32 - (k % 2 == 0) for k in range(1, shape[axis] // 32 + 1)]
+    mask = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    return mask.index_fill_(axis, torch.tensor([i for i in at if i < shape[axis]], device=dev), 255)
+
+
 def test_masks(dev):
     """The kernel checks' masks, on the card."""
     g = torch.Generator(device=dev).manual_seed(1)
@@ -110,6 +140,11 @@ def test_masks(dev):
     checker[::2, ::2] = 255
     checker[1::2, 1::2] = 255
     ragged = (torch.rand((33, 130), generator=g, device=dev) < 0.4).to(torch.uint8)
+    # 8-connected only through up-right links: tile corners, right columns
+    anti_diagonal = torch.zeros((H, W), dtype=torch.uint8, device=dev)
+    ys = torch.arange(H, device=dev)
+    anti_diagonal[ys, W - 1 - ys] = 255
+    odd = (1079, 1917)  # ragged tiles; W % 4 != 0 takes the byte loads
     return {
         "blobs_1080p": (blob, 8),
         "all_fg_1080p": (torch.full((H, W), 255, dtype=torch.uint8, device=dev), 8),
@@ -118,6 +153,12 @@ def test_masks(dev):
         "checker_8": (checker.to(dev), 8),
         "checker_4": (checker.to(dev), 4),
         "ragged_33x130": (ragged, 8),
+        "anti_diagonal_1080p": (anti_diagonal, 8),
+        "row_seams_1080p": (seam_lines((H, W), 0, dev), 8),
+        "column_seams_1080p": (seam_lines((H, W), 1, dev), 8),
+        "seam_grid_1080p_4": (seam_lines((H, W), 0, dev) | seam_lines((H, W), 1, dev), 4),
+        "seam_grid_1079x1917": (seam_lines(odd, 0, dev) | seam_lines(odd, 1, dev), 8),
+        "noise50_1079x1917": ((torch.rand(odd, generator=g, device=dev) < 0.5).to(torch.uint8), 8),
     }
 
 
@@ -157,13 +198,28 @@ def phase_kernels(dev, frames, rate):
         compare("label_cuda", a, label(mask, conn), case)
         compare("label_cuda", b, a, case + "_rerun")
 
-    # the main path's masks: threshed buoy frames at 1080p
+    # the main path's masks (threshed buoy frames at 1080p), and stacks
+    # whose images touch: each image's last and the next one's first row
+    # are foreground, joined by a column, so each image is one component
+    # with root 0
     masks = torch.stack([red_buoy_fused(f, 140, 255)[0] for f in frames])
-    a = label_cuda_batched(masks)
-    torch.cuda.synchronize()
-    compare("label_cuda_batched", a, label(masks), "buoy_b8")
-    noise = (torch.rand((8, H, W), device=dev) < 0.45).to(torch.uint8)
-    compare("label_cuda_batched", label_cuda_batched(noise), label(noise), "noise45_b8")
+    full8 = torch.full((8, H, W), 255, dtype=torch.uint8, device=dev)
+    touching = torch.zeros((8, H, W), dtype=torch.uint8, device=dev)
+    touching[:, 0] = touching[:, -1] = touching[:, :, W // 2] = 255
+    batched = {
+        "buoy_b8": masks,
+        "noise45_b8": (torch.rand((8, H, W), device=dev) < 0.45).to(torch.uint8),
+        "all_fg_b8": full8,
+        "image_seams_b8": touching,
+    }
+    for case, stack in batched.items():
+        a = label_cuda_batched(stack)
+        b = label_cuda_batched(stack)
+        torch.cuda.synchronize()
+        compare("label_cuda_batched", a, label(stack), case)
+        compare("label_cuda_batched", b, a, case + "_rerun")
+        if case in ("all_fg_b8", "image_seams_b8") and not (a[stack != 0] == 0).all():
+            raise AssertionError(f"label_cuda_batched: {case} is not one component with root 0 per image")
 
     for shape in ((H, W), (1079, 1917)):
         m = (torch.rand(shape, device=dev) < 0.5).to(torch.uint8) * 255
@@ -215,14 +271,36 @@ def phase_kernels(dev, frames, rate):
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         r["max_abs_err"] = err[name]
+    # CCL wall time per call (events around the Python call: checks,
+    # allocation, ctypes, launches) on the disc and the whole frame; the
+    # kernels' own device time comes after the main path (phase_ccl_device)
+    ccl_inputs = {
+        "label_cuda_disc": lambda: label_cuda(mask),
+        "label_cuda_all_fg": lambda: label_cuda(full),
+        "label_cuda_batched_disc_b8": lambda: label_cuda_batched(masks),
+        "label_cuda_batched_all_fg_b8": lambda: label_cuda_batched(full8),
+    }
+    ccl_ms = {key: cuda_ms(fn, 100) for key, fn in ccl_inputs.items()}
     extra = {
-        "label_cuda_all_fg_ms": cuda_ms(lambda: label_cuda(full), 100),
         "label_cuda_all_fg_plain_ms": cuda_ms(lambda: label(full), 5, warmup=1),
+        "label_cuda_batched_all_fg_b8_plain_ms": cuda_ms(lambda: label(full8), 3, warmup=1),
     }
     emit("kernels", checks=len(checks), cases=checks,
          **{n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")} for n, r in rows.items()},
-         **extra)
-    return rows
+         ccl_ms=ccl_ms, **extra)
+    return rows, ccl_inputs
+
+
+def phase_ccl_device(ccl_inputs):
+    """The CCL kernels' own device time per call (torch.profiler) beside the
+    event-timed wall time. Run after the main path: once the profiler has
+    traced the process, every later launch costs the host more, which the
+    launch-bound per-frame lane would read as a slower chain."""
+    out = {}
+    for key, fn in ccl_inputs.items():
+        dev_ms, by_kernel = device_ms(fn)
+        out[key] = {"ms": cuda_ms(fn, 100), "device_ms": dev_ms, "device_ms_by_kernel": by_kernel}
+    emit("ccl_device", **out)
 
 
 def phase_chain(dev, frames):
@@ -259,17 +337,19 @@ def phase_chain(dev, frames):
         assert (grew > 0) == (fused == "1"), f"fused_morph launches grew by {grew} with CUAUV_FUSED_MORPH={fused}"
 
     # throughput: the composed and fused morphology alternate within each
-    # repeat, so drift of the card or the host hits both alike
-    lanes = {"per_frame": (lambda k: pipe.run_async(frames[k % 8], 140, 255), 1),
-             "batched8": (lambda k: pipe.run_async_batched(stack, 140, 255), 8)}
+    # repeat, so drift of the card or the host hits both alike; the default
+    # tuners' whole frame (threshold 0) runs the composed morphology only
+    lanes = {"per_frame": (lambda k, tmin: pipe.run_async(frames[k % 8], tmin, 255), 1),
+             "batched8": (lambda k, tmin: pipe.run_async_batched(stack, tmin, 255), 8)}
+    settings = {"fused0": (140, "0"), "fused1": (140, "1"), "thresh0": (0, "0")}
     fps: dict = {}
     calls: dict = {}
     for _ in range(FPS_REPEATS):
-        for fused in ("0", "1"):
+        for setting, (tmin, fused) in settings.items():
             os.environ["CUAUV_FUSED_MORPH"] = fused
             for lane, (step, per_step) in lanes.items():
-                key = f"{lane}_fused{fused}"
-                rate, calls[key] = fps_window(step, per_step, FPS_WINDOW_S)
+                key = f"{lane}_{setting}"
+                rate, calls[key] = fps_window(lambda k: step(k, tmin), per_step, FPS_WINDOW_S)
                 fps.setdefault(key, []).append(rate)
     os.environ["CUAUV_FUSED_MORPH"] = "0"
     out["fps"] = {k: {"median": statistics.median(v), "min": min(v), "max": max(v), "windows": v}
@@ -462,7 +542,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     frames = [torch.from_numpy(buoy_frame((H, W), 0.4 * i)).to(dev) for i in range(8)]
-    rows = phase_kernels(dev, frames, rate)
+    rows, ccl_inputs = phase_kernels(dev, frames, rate)
 
     reset_launch_counts()
     phase_chain(dev, frames)
@@ -472,6 +552,7 @@ def main() -> int:
         counts[name] += n
     for name, n in counts.items():
         assert n > 0, f"{name} was not launched on the main path"
+    phase_ccl_device(ccl_inputs)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

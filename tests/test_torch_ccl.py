@@ -1,6 +1,8 @@
 """The port's plain CCL (``ops.ccl.label``, what the CUDA kernel must equal)
 against the JAX Pallas strip kernel in interpret mode and an exact labelling
-built with scipy.ndimage, on the masks of tests/test_pallas_ccl.py.
+built with scipy.ndimage, on the masks of tests/test_pallas_ccl.py and on
+masks whose components cross the CUDA kernel's 32x32 tile seams
+(tests/ccl_seam_masks.py).
 
 The JAX XLA fixpoint ``ccl.label`` stops after 64 passes, so it is a
 reference only on masks where it converges (smooth blobs, sparse noise)."""
@@ -9,6 +11,7 @@ import numpy as np
 import pytest
 import scipy.ndimage as ndi
 import torch
+from ccl_seam_masks import SMALL as SEAM_CASES
 
 from cuauv_vision_pipeline_tpu.ops import ccl as jccl
 from cuauv_vision_pipeline_tpu.ops.pallas.ccl_kernel import label_pallas
@@ -85,6 +88,7 @@ CASES = {
     "checkerboard_24x24": checkerboard,
     "ragged_33x130": lambda: blobs(5, shape=(33, 130)),
     "ragged_31x127": lambda: blobs(5, shape=(31, 127)),
+    **SEAM_CASES,
 }
 
 
@@ -107,6 +111,32 @@ def test_checkerboard_4_connectivity():
     # 8-conn: one diagonal-linked component; 4-conn: every pixel alone
     assert len(np.unique(port_label(mask)[mask != 0])) == 1
     assert len(np.unique(got[mask != 0])) == (mask != 0).sum()
+
+
+@pytest.mark.parametrize("case", list(SEAM_CASES))
+def test_seam_cases_4_connectivity(case):
+    mask = SEAM_CASES[case]()
+    got = port_label(mask, connectivity=4)
+    np.testing.assert_array_equal(got, exact_labels(mask, connectivity=4))
+    np.testing.assert_array_equal(
+        got, np.asarray(label_pallas(mask, connectivity=4, interpret=True))
+    )
+
+
+def test_seam_cases_have_the_components_they_are_built_for():
+    """The lines stay one component each (8-connectivity) across the seams,
+    and the up-right link is the only bridge of its two segments."""
+    one = ("anti_diagonal_100x120", "diagonal_100x100", "seam_grid_130x130",
+           "up_right_link_64x70")
+    for case in one:
+        got = port_label(SEAM_CASES[case]())
+        assert len(np.unique(got[got < SENTINEL])) == 1, case
+    for case in ("row_seams_140x100", "column_seams_100x140"):
+        got = port_label(SEAM_CASES[case]())
+        assert len(np.unique(got[got < SENTINEL])) == 4, case
+    # 4-connectivity splits the diagonals into single pixels and the link
+    mask = SEAM_CASES["up_right_link_64x70"]()
+    assert len(np.unique(port_label(mask, 4)[mask != 0])) == 2
 
 
 def test_dense_noise_matches_pallas_and_exact():

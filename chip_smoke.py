@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--morph-variant NAME=SOURCE.cu ...]
 
 Phases, each printing one JSON line (any failure exits non-zero and prints
 no result):
@@ -12,15 +12,18 @@ no result):
 3. kernels — each CUDA kernel against its plain PyTorch version on the same
              card tensors, exact equality required, CCL cases launched twice
              (equal reruns), among them components across the kernel's
-             32x32 tile seams; then kernel, plain and library times at the
-             main path's 1080p shapes.
-4. chain   — the red_buoy chain (RedBuoyPipeline) at 1080p on the card vs
-             the plain chain on the CPU, per-frame and batched-8, with and
-             without ``CUAUV_FUSED_MORPH=1``; per-frame and batched fps over
-             repeated windows of a few seconds (median, min, max) at the
-             disc threshold with both morphologies and at the default
-             tuners' whole frame (composed morphology), with the kernel
-             wrapper calls per frame.
+             32x32 tile seams; the morphology on graded u8 values, ragged
+             widths and heights, an odd address, B=8 stacks whose images
+             differ at their seams, and against four ``max_pool2d`` calls;
+             then kernel, plain and library times at the main path's 1080p
+             shapes.
+4. chain   — the red_buoy chain (RedBuoyPipeline, fused morphology) at 1080p
+             on the card vs the plain chain on the CPU, per-frame and
+             batched-8, and the composed ``red_buoy_chain`` likewise;
+             per-frame and batched fps over repeated windows of a few
+             seconds (median, min, max) at the disc threshold for both
+             chains in turn and at the default tuners' whole frame, with
+             the kernel wrapper calls per frame and a device profile.
 5. module  — the real entry points as subprocesses: the synthetic camera
              (``--scene zed``, the ZED's four planes) and
              ``modules.red_buoy``, both on a direction named for this run
@@ -34,16 +37,26 @@ no result):
 
 Launch counts are set to 0 just before the chain phase and read after the
 module phase (plus the module process's own logged counts): that is the
-main path's run. Then the CCL kernels' device time per call (torch.profiler)
-beside their event-timed wall time, a ``{"kernels": [...]}`` line and, last,
-the ``{"ok": true, "device": ...}`` line.
+main path's run. Then the CCL kernels' and the morphology's device time
+per call (torch.profiler) beside their event-timed wall time, a
+``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
+line.
+
+``--morph-variant NAME=SOURCE.cu`` (repeatable) builds another source with
+the C entry point of ``csrc/morph.cu`` (an earlier version, a design
+variant) into the git-ignored ``local/``, holds it against the plain
+morphology and times it beside ``csrc/morph.cu`` in the device phase, with
+the SASS opcode counts of both.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -65,6 +78,7 @@ _MEM_RATE = {"PCIe": 2.0e12, "HBM3": 3.35e12, "SXM": 3.35e12}
 # on 64 of its 128 FP32 lanes per clock, so its INT32 peak is half the
 # data sheet's 67 T/s float32 rate outside the tensor cores (SXM)
 _OPS_RATE = 67e12 / 2
+MORPH_OPS = ("open_close", "open", "close")
 # CUDA launches behind one wrapper call (csrc/ccl.cu: local, border, final)
 CUDA_LAUNCHES_PER_CALL = {"label_cuda": 3, "label_cuda_batched": 3, "fused_morph": 1}
 
@@ -105,13 +119,16 @@ def device_ms(fn, n: int = 20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {e.key[:60]: e.self_device_time_total / 1e3 / n
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-    return sum(by_name.values()), by_name
+    for _ in range(3):  # a trace now and then holds no kernel event: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {e.key[:60]: e.self_device_time_total / 1e3 / n
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if sum(by_name.values()) > 0:
+            return sum(by_name.values()), by_name
+    raise RuntimeError("torch.profiler recorded no kernel time in three traces")
 
 
 def seam_lines(shape, axis: int, dev):
@@ -160,6 +177,43 @@ def test_masks(dev):
         "seam_grid_1079x1917": (seam_lines(odd, 0, dev) | seam_lines(odd, 1, dev), 8),
         "noise50_1079x1917": ((torch.rand(odd, generator=g, device=dev) < 0.5).to(torch.uint8), 8),
     }
+
+
+def morph_masks(dev, buoy):
+    """The morphology checks' inputs on the card: graded u8 values (uniform
+    noise, a smooth ramp), ragged widths and heights, a view at an odd
+    address, B=8 stacks whose neighbouring images differ at the seam rows
+    (even images end bright, odd ones start dark: a row read across the
+    seam shows in the next erode or dilate), and the buoy masks."""
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def graded(shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+
+    def seams(shape):
+        stack = graded((8, *shape))
+        stack[0::2, -3:] = 255
+        stack[1::2, :3] = 0
+        return stack
+
+    ys = torch.arange(H, device=dev)[:, None]
+    xs = torch.arange(W, device=dev)[None, :]
+    out = {
+        "randint_1080p": graded((H, W)),
+        "ramp_1080p": ((3 * ys + 2 * xs) // 16 % 256).to(torch.uint8),
+        "binary_1080p": (graded((H, W)) < 128).to(torch.uint8) * 255,
+    }
+    for h in (1, 1079):
+        for w in (1, 3, 5, 129, 1917):
+            out[f"randint_{h}x{w}"] = graded((h, w))
+    odd = graded((H * W + 1,))[1:].view(H, W)
+    assert odd.data_ptr() % 4 and odd.is_contiguous()
+    out["odd_address_1080p"] = odd
+    out["seams_b8_1080p"] = seams((H, W))
+    out["seams_b8_1079x1917"] = seams((1079, 1917))
+    out["buoy"] = buoy[0]
+    out["buoy_b8"] = buoy
+    return out
 
 
 def ccl_edges(mask, connectivity: int) -> int:
@@ -221,11 +275,13 @@ def phase_kernels(dev, frames, rate):
         if case in ("all_fg_b8", "image_seams_b8") and not (a[stack != 0] == 0).all():
             raise AssertionError(f"label_cuda_batched: {case} is not one component with root 0 per image")
 
-    for shape in ((H, W), (1079, 1917)):
-        m = (torch.rand(shape, device=dev) < 0.5).to(torch.uint8) * 255
-        for op in ("open_close", "open", "close"):
-            compare("fused_morph", fused_morph(m, op), fused_morph_plain(m, op), f"{op}_{shape[0]}x{shape[1]}")
-    compare("fused_morph", fused_morph(masks[0]), fused_morph_plain(masks[0]), "buoy")
+    for case, m in morph_masks(dev, masks).items():
+        for op in MORPH_OPS:
+            got = fused_morph(m, op)
+            compare("fused_morph", got, fused_morph_plain(m, op), f"{op}_{case}")
+            if m.ndim == 3:  # a stack in one launch equals each image alone
+                alone = torch.stack([fused_morph(image, op) for image in m])
+                compare("fused_morph", got, alone, f"{op}_{case}_per_image")
 
     # times at the main path's shapes and inputs
     mask = masks[0].contiguous()
@@ -261,8 +317,10 @@ def phase_kernels(dev, frames, rate):
             replaces="cuauv_vision_pipeline_tpu/ops/pallas/morph_kernel.py:101",
             ms=cuda_ms(lambda: fused_morph(mask), 100),
             plain_ms=cuda_ms(lambda: fused_morph_plain(mask), 50),
-            # 4 stages x (4 row + 4 column) min/max per pixel
-            bytes=hw * 2, ops=32 * hw, library_ms=cuda_ms(library_morph, 50),
+            # the least work: a 5-tap min/max of packed pixels is one op per
+            # pixel (2 three-input DPX ops per u16x2 word of 2 pixels, or 4
+            # SIMD ops per u8x4 word of 4), x 2 passes x 4 stages
+            bytes=hw * 2, ops=8 * hw, library_ms=cuda_ms(library_morph, 50),
         ),
     }
     for name, r in rows.items():
@@ -288,7 +346,7 @@ def phase_kernels(dev, frames, rate):
     emit("kernels", checks=len(checks), cases=checks,
          **{n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")} for n, r in rows.items()},
          ccl_ms=ccl_ms, **extra)
-    return rows, ccl_inputs
+    return rows, ccl_inputs, masks
 
 
 def phase_ccl_device(ccl_inputs):
@@ -303,14 +361,121 @@ def phase_ccl_device(ccl_inputs):
     emit("ccl_device", **out)
 
 
+def start_variant_builds(variants):
+    """One nvcc per ``--morph-variant`` source, all started now, into the
+    git-ignored ``local/`` with the flags of ``csrc/``."""
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import _build
+
+    out_dir = REPO / "local"
+    out_dir.mkdir(exist_ok=True)
+    builds = {}
+    for name, source in variants.items():
+        lib = out_dir / f"libmorph_{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)]
+        builds[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return builds
+
+
+def morph_runner(lib):
+    """``fn(mask, op)`` over a library with ``csrc/morph.cu``'s C entry point."""
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda.morph_kernel import _SIGNATURES, STAGES
+
+    for fn, (restype, argtypes) in _SIGNATURES.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+
+    def run(mask, op="open_close"):
+        stages = STAGES[op]
+        out = torch.empty_like(mask)
+        bits = sum(1 << i for i, is_erode in enumerate(stages) if is_erode)
+        err = lib.morph_fused(mask.data_ptr(), out.data_ptr(), mask.shape[0] if mask.ndim == 3 else 1,
+                              mask.shape[-2], mask.shape[-1], bits, len(stages), 0,
+                              torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"morph_fused: CUDA error {err} ({lib.morph_error_string(err).decode()})")
+        return out
+
+    return run
+
+
+def sass_opcodes(lib) -> dict:
+    """Opcode counts of the open_close kernel on aligned rows in a built
+    library (the only kernel where a library has one), from cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    functions: dict = {}
+    name = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            functions[name] = {}
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)", line)
+        if name and op:
+            functions[name][op.group(1)] = functions[name].get(op.group(1), 0) + 1
+    chosen = [n for n in functions if "ILj9ELi4ELb1E" in n] or list(functions)
+    counts = functions[chosen[0]]
+    return {"function": chosen[0], "instructions": sum(counts.values()),
+            "opcodes": dict(sorted(counts.items(), key=lambda kv: -kv[1]))}
+
+
+def phase_morph_device(masks, builds):
+    """The morphology's own device time per call (torch.profiler) and its
+    event-timed wall time, at 1080p and on the B=8 buoy stack, beside each
+    ``--morph-variant`` built from another source (held exactly against the
+    plain version first); two rounds in turn. Run after the main path, as
+    the CCL's device phase."""
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import _build
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda.morph_kernel import fused_morph, fused_morph_plain
+
+    libs = {"morph": _build.library_path("morph")}
+    runners = {"morph": fused_morph}
+    ptxas = {}
+    g = torch.Generator(device=masks.device).manual_seed(3)
+    graded = torch.randint(0, 256, (3, 1079, 1917), generator=g, device=masks.device, dtype=torch.uint8)
+    for name, (proc, lib) in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for --morph-variant {name}:\n{log}")
+        ptxas[name] = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
+        run = morph_runner(ctypes.CDLL(str(lib)))
+        for m in (masks[0], masks, graded):
+            for op in MORPH_OPS:
+                want = fused_morph_plain(m, op)
+                got = run(m, op)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"--morph-variant {name} differs from the plain version ({op})")
+        libs[name] = lib
+        runners[name] = run
+    inputs = {"buoy_1080p": masks[0].contiguous(), "buoy_b8": masks}
+    rounds = []
+    for _ in range(2):
+        rounds.append({
+            name: {key: dict(zip(("device_ms", "device_ms_by_kernel"), device_ms(lambda: run(m))),
+                             ms=cuda_ms(lambda: run(m), 100))
+                   for key, m in inputs.items()}
+            for name, run in runners.items()})
+    emit("morph_device", rounds=rounds, variants_ptxas=ptxas,
+         sass={name: sass_opcodes(lib) for name, lib in libs.items()})
+
+
 def phase_chain(dev, frames):
-    from cuauv_vision_pipeline_tpu_torch.engine.chains import RedBuoyPipeline, red_buoy_fused
+    from cuauv_vision_pipeline_tpu_torch.engine.chains import (
+        RedBuoyPipeline,
+        red_buoy_chain,
+        red_buoy_fused,
+    )
     from cuauv_vision_pipeline_tpu_torch.ops.cuda import launch_counts
 
     pipe = RedBuoyPipeline(device=dev)
     host = [f.cpu() for f in frames]
     stack = torch.stack(frames)
     out = {}
+    # the production chain (fused morphology kernel) and the composed one
+    # (four max_pool2d passes and their casts), the same stats
+    chains = {"fused": pipe.run_async,
+              "composed": lambda image, tmin, tmax: red_buoy_chain(image, tmin, tmax, max_components=8)}
 
     def check(got, want, what):
         gt, gc, gb = got
@@ -321,49 +486,50 @@ def phase_chain(dev, frames):
             assert torch.equal(gb[key].cpu(), wb[key]), f"{what}: best[{key}] differs"
         assert torch.allclose(gb["centroid"].cpu(), wb["centroid"], rtol=1e-5, atol=1e-3), what
 
-    for fused in ("0", "1"):
-        os.environ["CUAUV_FUSED_MORPH"] = fused
+    for chain, run in chains.items():
         before = launch_counts()["fused_morph"]
         for tmin, tmax in ((140, 255), (0, 255)):
             for i in (0, 3):
-                check(pipe.run_async(frames[i], tmin, tmax),
-                      red_buoy_fused(host[i], tmin, tmax), f"frame{i} {tmin}-{tmax} fused={fused}")
-            batched = pipe.run_async_batched(stack, tmin, tmax)
+                check(run(frames[i], tmin, tmax),
+                      red_buoy_fused(host[i], tmin, tmax), f"frame{i} {tmin}-{tmax} {chain}")
+            batched = run(stack, tmin, tmax)
             for i in (0, 5):
                 want = red_buoy_fused(host[i], tmin, tmax)
                 lane = (batched[0][i], batched[1][i], {k: v[i] for k, v in batched[2].items()})
-                check(lane, want, f"lane{i} {tmin}-{tmax} fused={fused}")
+                check(lane, want, f"lane{i} {tmin}-{tmax} {chain}")
         grew = launch_counts()["fused_morph"] - before
-        assert (grew > 0) == (fused == "1"), f"fused_morph launches grew by {grew} with CUAUV_FUSED_MORPH={fused}"
+        assert (grew > 0) == (chain == "fused"), f"fused_morph launches grew by {grew} in the {chain} chain"
 
-    # throughput: the composed and fused morphology alternate within each
+    # throughput: the fused and composed chains alternate within each
     # repeat, so drift of the card or the host hits both alike; the default
-    # tuners' whole frame (threshold 0) runs the composed morphology only
-    lanes = {"per_frame": (lambda k, tmin: pipe.run_async(frames[k % 8], tmin, 255), 1),
-             "batched8": (lambda k, tmin: pipe.run_async_batched(stack, tmin, 255), 8)}
-    settings = {"fused0": (140, "0"), "fused1": (140, "1"), "thresh0": (0, "0")}
+    # tuners' whole frame (threshold 0) runs the fused chain only
+    lanes = {"per_frame": (lambda run, k, tmin: run(frames[k % 8], tmin, 255), 1),
+             "batched8": (lambda run, k, tmin: run(stack, tmin, 255), 8)}
+    settings = {"fused": ("fused", 140), "composed": ("composed", 140), "thresh0": ("fused", 0)}
     fps: dict = {}
     calls: dict = {}
     for _ in range(FPS_REPEATS):
-        for setting, (tmin, fused) in settings.items():
-            os.environ["CUAUV_FUSED_MORPH"] = fused
+        for setting, (chain, tmin) in settings.items():
             for lane, (step, per_step) in lanes.items():
                 key = f"{lane}_{setting}"
-                rate, calls[key] = fps_window(lambda k: step(k, tmin), per_step, FPS_WINDOW_S)
+                run = chains[chain]
+                rate, calls[key] = fps_window(lambda k: step(run, k, tmin), per_step, FPS_WINDOW_S)
                 fps.setdefault(key, []).append(rate)
-    os.environ["CUAUV_FUSED_MORPH"] = "0"
     out["fps"] = {k: {"median": statistics.median(v), "min": min(v), "max": max(v), "windows": v}
                   for k, v in fps.items()}
     out["fps_window_s"] = FPS_WINDOW_S
-    # fused / composed morphology, repeat by repeat
+    # fused / composed chain, repeat by repeat
     out["fused_over_composed"] = {
-        lane: [b / a for a, b in zip(fps[f"{lane}_fused0"], fps[f"{lane}_fused1"])] for lane in lanes}
+        lane: [b / a for a, b in zip(fps[f"{lane}_composed"], fps[f"{lane}_fused"])] for lane in lanes}
     out["wrapper_calls_per_frame"] = calls
     out["cuda_launches_per_frame"] = {
         key: {k: n * CUDA_LAUNCHES_PER_CALL[k] for k, n in c.items()} for key, c in calls.items()}
-    for tmin in (140, 0):  # the red disc; the default tuners' whole frame
-        wall_ms = cuda_ms(lambda: pipe.run_async(frames[0], tmin, 255), 50)
-        out[f"profile_thresh_min_{tmin}"] = profile_chain(pipe, frames, tmin, wall_ms)
+    # the red disc and the default tuners' whole frame; the composed chain
+    for name, chain, tmin in (("thresh_min_140", "fused", 140), ("thresh_min_0", "fused", 0),
+                              ("thresh_min_140_composed", "composed", 140)):
+        run = chains[chain]
+        wall_ms = cuda_ms(lambda: run(frames[0], tmin, 255), 50)
+        out[f"profile_{name}"] = profile_chain(run, frames, tmin, wall_ms)
     emit("chain", **out)
     return out
 
@@ -387,7 +553,7 @@ def fps_window(step, frames_per_step: int, seconds: float):
     return frames / elapsed, {k: (after[k] - before[k]) / frames for k in after}
 
 
-def profile_chain(pipe, frames, tmin, wall_ms, n=20):
+def profile_chain(run, frames, tmin, wall_ms, n=20):
     """Where a per-frame dispatch's device time goes (torch.profiler, CUDA
     kernel events only); the idle share is against ``wall_ms``, the
     unprofiled per-frame time, since the profiler slows the host."""
@@ -398,7 +564,7 @@ def profile_chain(pipe, frames, tmin, wall_ms, n=20):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for k in range(n):
-            pipe.run_async(frames[k % len(frames)], tmin, 255)
+            run(frames[k % len(frames)], tmin, 255)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / n
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -428,7 +594,7 @@ def phase_module():
 
     logs = REPO / "smoke_logs"
     logs.mkdir(parents=True, exist_ok=True)
-    env = {**os.environ, "PYTHONPATH": str(REPO), "CUAUV_FUSED_MORPH": "0"}
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
     results = shm.red_buoy_results
     results.set(visible=False, area=0.0, latency_ms=0.0)
     module_name = f"BuoyLAB-on-{direction}"
@@ -483,6 +649,7 @@ def phase_module():
         assert found, "module logged no kernel launch counts"
         out["module_launches"] = json.loads(found[-1])
         assert out["module_launches"]["label_cuda"] > 0, out
+        assert out["module_launches"]["fused_morph"] > 0, out
     finally:
         if reader is not None:
             reader.unblock()
@@ -506,6 +673,10 @@ def phase_module():
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--morph-variant", action="append", default=[], metavar="NAME=SOURCE.cu",
+                        help="time another morph source beside csrc/morph.cu (repeatable)")
+    variants = dict(v.split("=", 1) for v in parser.parse_args().morph_variant)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -525,6 +696,7 @@ def main() -> int:
     rate = mem_rate(kind)
 
     t0 = time.monotonic()
+    builds = start_variant_builds(variants)
     holder = {}
     bus = threading.Thread(target=lambda: holder.setdefault("lib", native.library_path()))
     bus.start()
@@ -536,13 +708,13 @@ def main() -> int:
         line.strip()
         for log in sorted(_build.BUILD_DIR.glob("*.log"))
         for line in log.read_text().splitlines()
-        if "registers" in line
+        if "registers" in line or "spill" in line
     ]
     emit("build", seconds=time.monotonic() - t0, kernels_seconds=kernels_s, ptxas=ptxas)
 
     dev = torch.device("cuda", 0)
     frames = [torch.from_numpy(buoy_frame((H, W), 0.4 * i)).to(dev) for i in range(8)]
-    rows, ccl_inputs = phase_kernels(dev, frames, rate)
+    rows, ccl_inputs, masks = phase_kernels(dev, frames, rate)
 
     reset_launch_counts()
     phase_chain(dev, frames)
@@ -553,6 +725,7 @@ def main() -> int:
     for name, n in counts.items():
         assert n > 0, f"{name} was not launched on the main path"
     phase_ccl_device(ccl_inputs)
+    phase_morph_device(masks, builds)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

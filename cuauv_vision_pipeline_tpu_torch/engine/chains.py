@@ -11,7 +11,6 @@ frames), where the JAX package mapped the per-frame chain over lanes.
 
 from __future__ import annotations
 
-import os
 from typing import Dict, Tuple
 
 import torch
@@ -42,19 +41,13 @@ def red_buoy_chain(image, thresh_min, thresh_max, max_components: int = 32) -> R
 
 def red_buoy_fused(image, thresh_min, thresh_max, max_components: int = 8) -> Result:
     """The production red_buoy hot path: colorspace -> inRange -> open/close
-    morphology -> CCL (the CUDA union-find kernel on the card) -> blob
-    reductions -> argmax. Stats run on the UN-cleaned mask (reference
-    modules/red_buoy.py:38); `cleaned` is for the debug post.
-
-    ``CUAUV_FUSED_MORPH=1`` routes open/close through the fused CUDA
-    morphology kernel (ops/cuda/morph_kernel.py) instead of four composed
-    max-pool passes; off by default, as in the JAX package."""
+    morphology (the fused CUDA kernel on the card, one launch; the composed
+    calls of :func:`red_buoy_chain` on the CPU) -> CCL (the CUDA union-find
+    kernel on the card) -> blob reductions -> argmax. Stats run on the
+    UN-cleaned mask (reference modules/red_buoy.py:38); `cleaned` is for the
+    debug post."""
     threshed = T.in_range(C.bgr_to_lab(image)[..., 1], thresh_min, thresh_max)
-    if os.environ.get("CUAUV_FUSED_MORPH", "0") == "1":
-        cleaned = fused_morph(threshed, "open_close")
-    else:
-        kernel = M.rect_kernel(5)
-        cleaned = M.close_morph(M.open_morph(threshed, kernel), kernel)
+    cleaned = fused_morph(threshed, "open_close")
     stats = ccl.component_stats(ccl.label_fast(threshed), max_components)
     return threshed, cleaned, ccl.best_component(stats)
 

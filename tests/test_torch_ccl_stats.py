@@ -101,3 +101,31 @@ def test_fused_morph_plain_matches_pallas(operation):
     got = fused_morph(torch.from_numpy(mask), operation).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got != mask).any()
+
+
+@pytest.mark.parametrize("operation", ["open_close", "open", "close"])
+def test_fused_morph_graded_matches_pallas(operation):
+    """Any u8 values, not only 0/255: a uniform noise and a smooth ramp."""
+    rng = np.random.default_rng(9)
+    noise_mask = rng.integers(0, 256, (70, 150), dtype=np.uint8)
+    ramp = (np.add.outer(3 * np.arange(70), 2 * np.arange(150)) // 16 % 256).astype(np.uint8)
+    for mask in (noise_mask, ramp):
+        want = np.asarray(jfused_morph(mask, operation, interpret=True))
+        got = fused_morph(torch.from_numpy(mask), operation).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert len(np.unique(got)) > 2
+
+
+@pytest.mark.parametrize("operation", ["open_close", "open", "close"])
+def test_fused_morph_batch_equals_each_image(operation):
+    """A [B, H, W] stack equals each image alone (the Pallas kernel takes one
+    image): neighbouring images differ at their seam rows, so a row read
+    across a seam would show."""
+    rng = np.random.default_rng(10)
+    masks = rng.integers(0, 256, (3, 40, 67), dtype=np.uint8)
+    masks[0::2, -3:] = 255
+    masks[1::2, :3] = 0
+    got = fused_morph(torch.from_numpy(masks), operation).numpy()
+    for b in range(masks.shape[0]):
+        want = np.asarray(jfused_morph(masks[b], operation, interpret=True))
+        np.testing.assert_array_equal(got[b], want)

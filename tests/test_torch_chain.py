@@ -32,22 +32,25 @@ def assert_best_equal(got, want):
     )
 
 
-@pytest.mark.parametrize("fused_morph", ["0", "1"])
-def test_red_buoy_fused_matches_jax(fused_morph, monkeypatch):
-    monkeypatch.setenv("CUAUV_FUSED_MORPH", fused_morph)
-    # a fresh function per setting: the JAX chain reads the env var at trace
-    # time, and jit caches traces per function
+@pytest.mark.parametrize("batched", [0, 1])
+def test_red_buoy_fused_matches_jax(batched):
+    """One [H, W, 3] frame, or (batched) a [2, H, W, 3] batch whose lane b
+    equals the JAX chain on frame b."""
     jfused = jax.jit(lambda img, lo, hi: jchains.red_buoy_fused(img, lo, hi))
-    frame = buoy_frame(SHAPE, 0.3)
+    frames = [buoy_frame(SHAPE, 0.3 + t) for t in range(1 + batched)]
+    batch = np.stack(frames) if batched else frames[0]
     for tmin, tmax in [(0, 255), (140, 255), (150, 200)]:
-        jt, jc, jbest = jfused(frame, np.int32(tmin), np.int32(tmax))
         tt, tc, tbest = tchains.red_buoy_fused(
-            torch.from_numpy(frame), np.int32(tmin), np.int32(tmax)
+            torch.from_numpy(batch), np.int32(tmin), np.int32(tmax)
         )
-        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
-        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-        assert_best_equal({k: v.numpy() for k, v in tbest.items()}, jbest)
-    assert bool(tbest["found"]) and int(tbest["area"]) < SHAPE[0] * SHAPE[1]
+        for b, frame in enumerate(frames):
+            lane = (lambda x: x[b]) if batched else (lambda x: x)
+            jt, jc, jbest = jfused(frame, np.int32(tmin), np.int32(tmax))
+            np.testing.assert_array_equal(lane(tt).numpy(), np.asarray(jt))
+            np.testing.assert_array_equal(lane(tc).numpy(), np.asarray(jc))
+            best = {k: lane(v).numpy() for k, v in tbest.items()}
+            assert_best_equal(best, jbest)
+    assert bool(best["found"]) and int(best["area"]) < SHAPE[0] * SHAPE[1]
 
 
 def test_red_buoy_chain_matches_fused():

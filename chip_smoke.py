@@ -24,7 +24,24 @@ no result):
              seconds (median, min, max) at the disc threshold for both
              chains in turn and at the default tuners' whole frame, with
              the kernel wrapper calls per frame and a device profile.
-5. module  — the real entry points as subprocesses: the synthetic camera
+5. nms     — the greedy-NMS kernel against its plain version on card
+             tensors (the pools of tests/nms_cases.py: 1 to 8400
+             candidates, exact ties, none above the threshold, fewer than
+             max_det, rotated poles; B=1 and B=8), ProbIoU and AABB, each
+             launched twice; picked and valid exact.
+6. yolo    — the YOLO-OBB serving path (YoloModel: YOLOv8n-obb, 15 classes,
+             640, bf16, seeded random init) on 1080p ZED frames: (a) float32
+             on the card (TF32 off) against float32 on the CPU: head outputs
+             within a few times their measured difference and decoded valid,
+             also decoded cls for the trained detect fixture; the card's
+             head maps decoded on both devices: DFL, boxes and scores
+             within a few ulps, then pool, gathers and NMS on the card's
+             own candidates with valid, cls, picked, scores and boxes
+             equal; TF32 on must fail the head tolerance; (b)
+             the trained fixture in bf16 on the card over 24 synthetic scenes
+             (recall and precision >= 0.75); (c) event-timed ms per frame and
+             per-frame fps over five 2 s windows.
+7. module  — the real entry points as subprocesses: the synthetic camera
              (``--scene zed``, the ZED's four planes) and
              ``modules.red_buoy``, both on a direction named for this run
              and with ``CUAUV_SHM_NAMESPACE`` set to this run's own
@@ -33,14 +50,18 @@ no result):
              ``shm.red_buoy_results`` under default tuners (whole frame) and
              after ``thresh_min=140`` (the red disc) set through the
              ModuleReader, reads ``latency_ms`` and the module's CCL launch
-             count, then removes the blocks and groups this run made.
+             count; beside it ``modules.yolo`` (no weight: seeded random
+             init) on the same camera, until ``shm.yolo_status.frames``
+             advances, with its ``latency_ms``, its posts and its
+             ``nms_fixed`` launches; then removes the blocks and groups this
+             run made.
 
 Launch counts are set to 0 just before the chain phase and read after the
-module phase (plus the module process's own logged counts): that is the
-main path's run. Then the CCL kernels' and the morphology's device time
-per call (torch.profiler) beside their event-timed wall time, a
-``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
-line.
+module phase (plus the module processes' own logged counts): that is the
+main path's run. Then the CCL kernels', the morphology's and the YOLO
+path's device time (torch.profiler: preamble, conv stack, decode, NMS)
+beside their event-timed wall time, a ``{"kernels": [...]}`` line and,
+last, the ``{"ok": true, "device": ...}`` line.
 
 ``--morph-variant NAME=SOURCE.cu`` (repeatable) builds another source with
 the C entry point of ``csrc/morph.cu`` (an earlier version, a design
@@ -52,6 +73,7 @@ the SASS opcode counts of both.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -66,6 +88,7 @@ import time
 import uuid
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
@@ -78,9 +101,16 @@ _MEM_RATE = {"PCIe": 2.0e12, "HBM3": 3.35e12, "SXM": 3.35e12}
 # on 64 of its 128 FP32 lanes per clock, so its INT32 peak is half the
 # data sheet's 67 T/s float32 rate outside the tensor cores (SXM)
 _OPS_RATE = 67e12 / 2
+# float32 outside the tensor cores (SXM data sheet): the NMS kernel's rate
+_F32_RATE = 67e12
+# float operations of one ProbIoU of a candidate against the round's best
+# (nms_kernel._probiou_rows: 33 adds, multiplies and divisions, log, exp,
+# sqrt, the clamp) and its threshold compare
+NMS_OPS_PER_IOU = 38
 MORPH_OPS = ("open_close", "open", "close")
 # CUDA launches behind one wrapper call (csrc/ccl.cu: local, border, final)
-CUDA_LAUNCHES_PER_CALL = {"label_cuda": 3, "label_cuda_batched": 3, "fused_morph": 1}
+CUDA_LAUNCHES_PER_CALL = {"label_cuda": 3, "label_cuda_batched": 3, "fused_morph": 1, "nms_fixed": 1}
+YOLO_FIXTURE = REPO / "tests" / "fixtures" / "synth_pico_detect.msgpack"
 
 
 def emit(phase: str, **fields) -> None:
@@ -582,6 +612,347 @@ def profile_chain(run, frames, tmin, wall_ms, n=20):
     }
 
 
+def phase_nms(dev):
+    """The NMS kernel against its plain version (torch ops) on the same card
+    tensors: every pool of tests/nms_cases.py, ProbIoU and AABB, each
+    kernel launch twice; picked and valid exact."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from nms_cases import cases
+
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda.nms_kernel import nms_fixed_plain
+
+    checks = []
+    for case, arrays in cases().items():
+        boxes, scores, classes, angles = (torch.from_numpy(a).to(dev) for a in arrays[:4])
+        max_det = arrays[4]
+        for rotated in (True, False):
+            ang = angles if rotated else None
+            want = nms_fixed_plain(boxes, scores, classes, 0.45, max_det, True, ang)
+            for rep in range(2):
+                got = nms_fixed_cuda(boxes, scores, classes, ang, 0.45, max_det)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"nms_fixed differs from its plain version on {case} "
+                                         f"({'probiou' if rotated else 'aabb'}, launch {rep})")
+            checks.append(f"{case}_{'probiou' if rotated else 'aabb'}")
+    emit("nms", checks=len(checks), cases=checks)
+
+
+def zed_frames(n: int):
+    """1080p ZED forward planes of the synthetic camera (numpy BGR u8)."""
+    from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
+
+    return [buoy_frame((H, W), 0.4 * i) for i in range(n)]
+
+
+def heads_err(got, want) -> float:
+    """Max |difference| of per-scale head maps (card against CPU)."""
+    return max((g.cpu() - w).abs().max().item() for key in want for g, w in zip(got[key], want[key]))
+
+
+@contextlib.contextmanager
+def recording_nms(calls: list):
+    """Record each NMS call of ``decode`` (its arguments and picks)."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo import decode as decode_mod
+
+    real = decode_mod.nms_fixed_cuda
+
+    def record(*args):
+        result = real(*args)
+        calls.append((args, result))
+        return result
+
+    decode_mod.nms_fixed_cuda = record
+    try:
+        yield
+    finally:
+        decode_mod.nms_fixed_cuda = real
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """The f32 mode's forward with TF32 left on (the negative control of
+    the card-vs-CPU check)."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo import predictor
+
+    real = predictor._no_tf32
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    predictor._no_tf32 = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        predictor._no_tf32 = real
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def decode_card_and_cpu(model, heads):
+    """The card's f32 head maps decoded on the card and on the CPU, in
+    decode's two halves. The elementwise half (DFL, boxes, sigmoid) rounds
+    differently on the two devices: its largest differences. The selection
+    half (stable-sort pool, gathers, NMS) given the card's own candidates:
+    whether valid, cls, picked, score and xyxy are equal. And whether the
+    whole decode on the CPU picks as the card does."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.decode import candidates, select
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
+
+    def cpu(xs):
+        return [None if x is None else x.cpu() for x in xs]
+
+    kw = dict(iou_thresh=0.45, max_det=model.max_det, nms_pool=model.nms_pool)
+    before = nms_fixed_cuda.launches  # a comparison, not the main path's launch
+    calls: list = []
+    with torch.inference_mode(), recording_nms(calls):
+        card = candidates(heads, model.model.reg_max, model.conf_thresh)
+        host = candidates({k: cpu(v) for k, v in heads.items()}, model.model.reg_max, model.conf_thresh)
+        got = select(*card, model.image_size, **kw)
+        want = select(*cpu(card), model.image_size, **kw)
+        whole = select(*host, model.image_size, **kw)
+    nms_fixed_cuda.launches = before
+    (_, got_picks), (_, want_picks), (_, whole_picks) = calls
+    out = {
+        "score_max_abs_err": (card[2].cpu() - host[2]).abs().max().item(),
+        "box_max_abs_err": (card[0].cpu() - host[0]).abs().max().item(),
+        "angle_max_abs_err": 0.0 if card[1] is None else (card[1].cpu() - host[1]).abs().max().item(),
+        "picked": torch.equal(got_picks[0].cpu(), want_picks[0]),
+        **{key: torch.equal(got[key].cpu(), want[key]) for key in got},
+        "whole_decode_picked": torch.equal(got_picks[0].cpu(), whole_picks[0]),
+    }
+    return out
+
+
+# card-vs-CPU float32 head maps: a few times this card's measured
+# differences (random init's values are ~1e-3, the fixture's logits ~1-10);
+# TF32 left on moves them past both, as the control in phase_yolo shows
+HEADS_ATOL = {"random_init": 1e-7, "fixture": 5e-5}
+# decode's elementwise half on the card against the CPU, from the same maps:
+# a few float32 ulps of a score near 0.5, of a coordinate near 640 px and
+# of an angle
+CANDIDATE_ATOL = {"score_max_abs_err": 1e-6, "box_max_abs_err": 1e-3, "angle_max_abs_err": 1e-6}
+
+
+def phase_yolo(dev):
+    """The YOLO-OBB serving path at full width. (a) float32 on the card
+    (TF32 off) against the port's float32 CPU path on the same seeded
+    weights: head maps within HEADS_ATOL, decoded valid equal (random
+    init's pool scores lie within rounding of each other, so its picks are
+    held below on the card's own maps); the trained fixture's head maps
+    and decoded valid/cls likewise; each model's card head maps decoded on
+    the card and on the CPU: decode's elementwise half within
+    CANDIDATE_ATOL, its selection half (pool, gathers, NMS) on the card's
+    own candidates with valid, cls, picked, score and boxes equal, and for
+    the fixture the whole CPU decode picking the same; and the control:
+    the same maps with TF32 on must fail HEADS_ATOL. (b) The
+    trained detect fixture served in bf16 on the card: recall and precision
+    >= 0.75 over 24 scenes (seed 77). (c) The serving model's event-timed
+    ms per 1080p frame, per-frame fps over five windows, wrapper calls per
+    frame; and the NMS pool of one real frame, kept for the kernel's timing
+    after the main path."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.predictor import YoloModel
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.synth import (
+        match_detections,
+        render_obb_scene,
+        render_scene,
+    )
+
+    out = {}
+    rng = np.random.default_rng(5)
+    frames = {"zed_1080p": zed_frames(1)[0],
+              **{f"obb_scene_{i}": render_obb_scene(rng, size=640)[0] for i in range(2)}}
+    rng = np.random.default_rng(77)
+    scenes = {f"fixture_scene_{i}": render_scene(rng, size=128, max_objects=3)[0] for i in range(4)}
+    fixture = dict(image_size=128, max_det=8, conf_thresh=0.25)
+    agree, failures = {}, []
+    for kind, weight, kw, inputs in (
+        ("random_init", None, dict(task="obb"), frames),
+        ("fixture", str(YOLO_FIXTURE), fixture, scenes),
+    ):
+        card = YoloModel(weight, half_precision=False, device=dev, **kw)
+        host = YoloModel(weight, half_precision=False, device="cpu", **kw)
+        for name, frame in inputs.items():
+            image = torch.from_numpy(frame)
+            want_heads = host.head_outputs(image[None])
+            card_heads = card.head_outputs(image.to(dev)[None])
+            got, want = card.device_decode(frame), host.device_decode(frame)
+            row = {"heads_max_abs_err": heads_err(card_heads, want_heads),
+                   "valid": int(want["valid"].sum()),
+                   "decoded_valid_equal": torch.equal(got["valid"].cpu(), want["valid"]),
+                   "decoded_cls_equal": torch.equal(got["cls"].cpu(), want["cls"]),
+                   "card_maps_decoded_on_cpu": decode_card_and_cpu(card, card_heads)}
+            if name in ("zed_1080p", "fixture_scene_0"):
+                with tf32_allowed():
+                    row["tf32_on_heads_max_abs_err"] = heads_err(card.head_outputs(image.to(dev)[None]),
+                                                                 want_heads)
+                if not row["tf32_on_heads_max_abs_err"] > HEADS_ATOL[kind]:
+                    failures.append(f"{name}: TF32 on stays within {HEADS_ATOL[kind]}")
+            if not row["heads_max_abs_err"] <= HEADS_ATOL[kind]:
+                failures.append(f"{name}: head maps differ past {HEADS_ATOL[kind]}")
+            checked = ("decoded_valid_equal", "decoded_cls_equal") if kind == "fixture" else ("decoded_valid_equal",)
+            failures += [f"{name}: {key} is false" for key in checked if not row[key]]
+            both = row["card_maps_decoded_on_cpu"]
+            failures += [f"{name}: card candidates selected on the CPU: {key} differs"
+                         for key in ("valid", "cls", "picked", "score", "xyxy", "angle") if not both.get(key, True)]
+            failures += [f"{name}: card maps: {key} {both[key]} past {limit}"
+                         for key, limit in CANDIDATE_ATOL.items() if not both[key] <= limit]
+            if kind == "fixture" and not both["whole_decode_picked"]:
+                failures.append(f"{name}: card maps decoded on the CPU pick otherwise")
+            agree[name] = row
+    out["f32_card_vs_cpu"] = agree
+    if failures:
+        emit("yolo_f32", heads_atol=HEADS_ATOL, **agree)
+        raise AssertionError("f32 card vs CPU: " + "; ".join(failures))
+
+    model = YoloModel(str(YOLO_FIXTURE), device=dev, **fixture)
+    rng = np.random.default_rng(77)
+    tp = n_gt = n_pred = 0
+    for _ in range(24):
+        img, boxes, cls = render_scene(rng, size=128, max_objects=3)
+        decoded = {k: v.cpu().numpy() for k, v in model.device_decode(img).items()}
+        t, g, p_ = match_detections(decoded, boxes, cls)
+        tp, n_gt, n_pred = tp + t, n_gt + g, n_pred + p_
+    out["fixture_bf16"] = {"recall": tp / max(n_gt, 1), "precision": tp / max(n_pred, 1),
+                           "tp": tp, "n_gt": n_gt, "n_pred": n_pred}
+    if not (tp / max(n_gt, 1) >= 0.75 and tp / max(n_pred, 1) >= 0.75):
+        raise AssertionError(f"trained fixture in bf16 on the card: {out['fixture_bf16']}")
+
+    serve = YoloModel(None, task="obb", device=dev)
+    images = [torch.from_numpy(f).to(dev) for f in zed_frames(4)]
+    calls: list = []
+    with recording_nms(calls):
+        decoded = serve.device_decode(images[0])
+    pools = [args for args, _ in calls]
+    out["serving"] = {"model": "YOLOv8n-obb, 15 classes, 640, bf16, seeded random init",
+                      "parameters": sum(p.numel() for p in serve.model.parameters()),
+                      "valid": int(decoded["valid"].sum()),
+                      "above_threshold": int((pools[0][1] > 0).sum())}
+    out["device_decode_ms"] = cuda_ms(lambda: serve.device_decode(images[0]), 50)
+    rates, calls = [], None
+    for _ in range(FPS_REPEATS):
+        rate, calls = fps_window(lambda k: serve.device_decode(images[k % 4]), 1, FPS_WINDOW_S)
+        rates.append(rate)
+    out["fps_per_frame"] = {"median": statistics.median(rates), "min": min(rates), "max": max(rates),
+                            "windows": rates}
+    out["wrapper_calls_per_frame"] = calls
+    emit("yolo", **out)
+    return serve, images[0], pools[0]
+
+
+def profile_fn(fn, n: int = 20) -> dict:
+    """Device ms and CUDA kernels per call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then holds no kernel event: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    else:
+        raise RuntimeError("torch.profiler recorded no kernel event in three traces")
+    by_name: dict = {}
+    for e in events:
+        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + e.self_device_time_total / 1e3 / n
+    return {"device_ms": sum(by_name.values()), "kernels": sum(e.count for e in events) / n,
+            "top_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def nms_work(boxes, scores, classes, angles, iou_thresh, max_det):
+    """What greedy NMS must compute on this pool, counted on its plain
+    version's rounds: (rounds run, alive candidates scanned, IoUs). Each
+    round scans the alive candidates for the best score and their classes,
+    and needs the IoU of the alive candidates of the best one's class."""
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda.nms_kernel import (
+        _aabb_rows,
+        _nms_geometry,
+        _probiou_rows,
+    )
+
+    g = _nms_geometry(boxes, angles)
+    rows = _probiou_rows if angles is not None else _aabb_rows
+    lanes = torch.arange(scores.shape[0], device=scores.device)
+    alive = scores.clone()
+    rounds = scanned = ious = 0
+    for _ in range(max_det):
+        best = torch.argmax(alive, dim=1)
+        ok = alive[lanes, best] > 0.0
+        live = (alive > 0.0) & ok[:, None]
+        if not ok.any():
+            break
+        same = live & (classes == classes[lanes, best][:, None])
+        rounds, scanned, ious = rounds + 1, scanned + int(live.sum()), ious + int(same.sum() - ok.sum())
+        suppress = (rows(g, best) >= iou_thresh) & (classes == classes[lanes, best][:, None])
+        suppress[lanes, best] = True
+        alive = torch.where(suppress & ok[:, None], 0.0, alive)
+    return rounds, scanned, ious
+
+
+def phase_yolo_device(serve, image, pool, rate):
+    """Where a 1080p frame's device time goes on the YOLO path (profiled
+    after the main path): the letterbox, +conv stack, the whole
+    device_decode, and the NMS kernel alone on the frame's own pool (held
+    against its plain version there too); the kernel's event-timed ms,
+    plain ms and bound for the kernels line."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.model import preprocess_fused
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda.nms_kernel import nms_fixed_plain
+
+    boxes, scores, classes, angles, iou_thresh, max_det = pool
+    want = nms_fixed_plain(boxes, scores, classes, iou_thresh, max_det, True, angles)
+    got = nms_fixed_cuda(*pool)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("nms_fixed differs from its plain version on the serving frame's pool")
+    wall = cuda_ms(lambda: serve.device_decode(image), 50)
+    stages = {
+        "preprocess": profile_fn(lambda: preprocess_fused(image[None], serve.image_size)),
+        "preprocess_and_convs": profile_fn(lambda: serve.head_outputs(image[None])),
+        "device_decode": profile_fn(lambda: serve.device_decode(image)),
+        "nms_fixed": profile_fn(lambda: nms_fixed_cuda(*pool)),
+        # one round only: the prologue and launch, so the rest is 31 rounds
+        "nms_fixed_one_round": profile_fn(lambda: nms_fixed_cuda(*pool[:5], 1)),
+    }
+    whole = stages["device_decode"]["device_ms"]
+    split = {
+        "preprocess": stages["preprocess"]["device_ms"],
+        "conv_stack": stages["preprocess_and_convs"]["device_ms"] - stages["preprocess"]["device_ms"],
+        "nms_fixed": stages["nms_fixed"]["device_ms"],
+    }
+    split["decode"] = whole - stages["preprocess_and_convs"]["device_ms"] - split["nms_fixed"]
+    B, P = scores.shape
+    rounds, scanned, ious = nms_work(*pool[:4], iou_thresh, max_det)
+    row = dict(
+        source="cuauv_vision_pipeline_tpu_torch/csrc/nms.cu",
+        replaces="cuauv_vision_pipeline_tpu/models/yolo/decode.py:150",
+        ms=cuda_ms(lambda: nms_fixed_cuda(*pool), 100),
+        plain_ms=cuda_ms(lambda: nms_fixed_plain(boxes, scores, classes, iou_thresh, max_det, True, angles), 20),
+        library_ms=None, max_abs_err=0,
+    )
+    # the pool read once (boxes, score, class, angle), picked and valid written
+    t_bytes = (B * P * (16 + 4 + 4 + 4) + B * max_det * 5) / rate * 1e3
+    # two compares per scanned candidate (best score, class), one IoU per pair
+    t_ops = (2 * scanned + NMS_OPS_PER_IOU * ious) / _F32_RATE * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    # per launch: a trace may hold fewer kernel events than calls
+    per_launch = {k: stages[k]["device_ms"] / stages[k]["kernels"] for k in ("nms_fixed", "nms_fixed_one_round")}
+    # the kernel's rounds: the picks and, short of max_det, one that finds none
+    kernel_rounds = min(max_det, rounds + 1)
+    round_us = (per_launch["nms_fixed"] - per_launch["nms_fixed_one_round"]) / max(kernel_rounds - 1, 1) * 1e3
+    emit("yolo_device", wall_ms_per_frame=wall, device_ms_per_frame=whole,
+         device_idle_share=1 - whole / wall, kernels_per_frame=stages["device_decode"]["kernels"],
+         split_device_ms=split, stages=stages, nms_pool=P, nms_rounds=rounds,
+         nms_scanned=scanned, nms_ious=ious, nms_bound_bytes_ms=t_bytes, nms_bound_ops_ms=t_ops,
+         nms_device_ms_per_launch=per_launch, nms_round_us=round_us,
+         nms_ms=row["ms"], nms_plain_ms=row["plain_ms"], nms_bound_ms=row["bound_ms"])
+    return row
+
+
 def phase_module():
     # this run's own names: the camera's direction (so the bus block and the
     # module's post and tuner blocks) and the shm namespace of its groups
@@ -597,6 +968,8 @@ def phase_module():
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     results = shm.red_buoy_results
     results.set(visible=False, area=0.0, latency_ms=0.0)
+    status = shm.yolo_status
+    status.set(frames=0, latency_ms=0.0)
     module_name = f"BuoyLAB-on-{direction}"
     procs = []
 
@@ -626,6 +999,7 @@ def phase_module():
         start(["cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic", direction,
                "--scene", "zed", "--fps", "30"], "source")
         module = start(["cuauv_vision_pipeline_tpu_torch.modules.red_buoy", direction], "module")
+        yolo = start(["cuauv_vision_pipeline_tpu_torch.modules.yolo", direction], "yolo")
         wait_for(lambda: results.visible.get(), 180, "the first detection")
         wait_for(lambda: results.area.get() == H * W, 10, "a whole-frame area")
         out["area_default_tuners"] = results.area.get()
@@ -641,15 +1015,35 @@ def phase_module():
         out["latency_newest_ms"] = results.latency_newest_ms.get()
         reader.unblock()
         reader = None
-        module.send_signal(signal.SIGINT)
-        module.wait(timeout=60)
-        assert module.returncode == 0, f"module exited with {module.returncode}"
-        text = (logs / "module.log").read_text()
-        found = re.findall(r"kernel launches: (\{.*\})", text)
-        assert found, "module logged no kernel launch counts"
-        out["module_launches"] = json.loads(found[-1])
+        # the YOLO module on the same camera: frames advance, each with a
+        # camera-to-result latency; its seven posts (the frame and one per
+        # handler) appear
+        wait_for(lambda: status.frames.get() >= 3, 180, "YOLO results")
+        seen, latencies = status.frames.get(), []
+        deadline = time.monotonic() + 4.0
+        while time.monotonic() < deadline:
+            if status.frames.get() != seen:
+                seen = status.frames.get()
+                latencies.append(status.latency_ms.get())
+            time.sleep(0.01)
+        assert len(latencies) >= 5, f"yolo_status.frames advanced {len(latencies)} times in 4 s"
+        out["yolo_frames"] = seen
+        out["yolo_latency_ms"] = {"median": statistics.median(latencies), "min": min(latencies),
+                                  "max": max(latencies), "samples": len(latencies)}
+        posts = sorted(p.name.split("%")[-1] for p in
+                       Path(BLOCK_STUB).parent.glob(Path(BLOCK_STUB).name + f"module_Yolo-on-{direction}_post%*"))
+        out["yolo_posts"] = posts
+        assert len(posts) >= 7, posts
+        for name, proc in (("module", module), ("yolo", yolo)):
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=60)
+            assert proc.returncode == 0, f"{name} exited with {proc.returncode}"
+            found = re.findall(r"kernel launches: (\{.*\})", (logs / f"{name}.log").read_text())
+            assert found, f"{name} logged no kernel launch counts"
+            out[f"{name}_launches"] = json.loads(found[-1])
         assert out["module_launches"]["label_cuda"] > 0, out
         assert out["module_launches"]["fused_morph"] > 0, out
+        assert out["yolo_launches"]["nms_fixed"] > 0, out
     finally:
         if reader is not None:
             reader.unblock()
@@ -716,16 +1110,21 @@ def main() -> int:
     frames = [torch.from_numpy(buoy_frame((H, W), 0.4 * i)).to(dev) for i in range(8)]
     rows, ccl_inputs, masks = phase_kernels(dev, frames, rate)
 
+    phase_nms(dev)
+
     reset_launch_counts()
     phase_chain(dev, frames)
+    serve, image, pool = phase_yolo(dev)
     counts = launch_counts()
     module = phase_module()
-    for name, n in module["module_launches"].items():
-        counts[name] += n
+    for key in ("module_launches", "yolo_launches"):
+        for name, n in module[key].items():
+            counts[name] += n
     for name, n in counts.items():
         assert n > 0, f"{name} was not launched on the main path"
     phase_ccl_device(ccl_inputs)
     phase_morph_device(masks, builds)
+    rows["nms_fixed"] = phase_yolo_device(serve, image, pool, rate)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

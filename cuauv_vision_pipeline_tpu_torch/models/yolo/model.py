@@ -1,0 +1,319 @@
+"""YOLOv8-family architecture as torch ``nn.Module``s (detect and obb heads).
+
+Port of ``cuauv_vision_pipeline_tpu.models.yolo.model``: CSP backbone
+(Conv-BN-SiLU + C2f blocks + SPPF), PAN neck and the decoupled per-scale
+heads, at the ultralytics n/s/m width-depth multiples. Parameter names are
+ultralytics' own (``model.<yaml index>.cv1.conv.weight``, ...), so one
+naming serves the carry-over of the JAX package's flax parameters
+(weights.params_from_flax), ``.pt`` import and export.
+
+Layouts: the modules run NCHW (``channels_last`` memory on the card); the
+forward's outputs are NHWC views, as flax returns them, so decode flattens
+anchors in the JAX package's order (row-major H, then W).
+
+``YOLO.fuse_`` folds each BatchNorm into its convolution for inference
+(one conv with bias + SiLU per layer instead of conv, BN, SiLU); the fold is
+computed in float32 and then cast to the serving dtype.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+SIZES = {
+    # depth_multiple, width_multiple, max_channels; "p" (pico) is the in-repo
+    # CPU-trainable width of the fixture checkpoints
+    "p": (1 / 3, 0.125, 1024),
+    "n": (1 / 3, 0.25, 1024),
+    "s": (1 / 3, 0.50, 1024),
+    "m": (2 / 3, 0.75, 768),
+    "l": (1.0, 1.00, 512),
+    "x": (1.0, 1.25, 512),
+}
+TASKS = ("detect", "obb")
+BN_EPS = 1e-3
+
+
+def _make_divisible(x: float, divisor: int = 8) -> int:
+    return max(divisor, int(round(x / divisor) * divisor))
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm with ultralytics' four tensors and nothing else
+    (``nn.BatchNorm2d`` adds ``num_batches_tracked``, which no checkpoint of
+    the JAX package carries)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                            self.bias, False, 0.0, BN_EPS)
+
+
+class ConvBnSilu(nn.Module):
+    def __init__(self, c_in: int, c_out: int, kernel: int = 3, stride: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(c_in, c_out, kernel, stride, kernel // 2, bias=False)
+        self.bn = BatchNorm(c_out)
+        # (weight, bias) with the BatchNorm folded in; set by YOLO.fuse_
+        self.fused: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused is not None:
+            w, b = self.fused
+            return F.silu(F.conv2d(x, w, b, self.conv.stride, self.conv.padding))
+        return F.silu(self.bn(self.conv(x)))
+
+    def fuse_(self, dtype: torch.dtype) -> None:
+        bn = self.bn
+        scale = bn.weight.float() / torch.sqrt(bn.running_var.float() + BN_EPS)
+        w = self.conv.weight.float() * scale[:, None, None, None]
+        b = bn.bias.float() - bn.running_mean.float() * scale
+        self.fused = (w.to(dtype).contiguous(memory_format=torch.channels_last), b.to(dtype))
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, channels: int, shortcut: bool = True):
+        super().__init__()
+        self.cv1 = ConvBnSilu(channels, channels, 3)
+        self.cv2 = ConvBnSilu(channels, channels, 3)
+        self.shortcut = shortcut
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.shortcut else y
+
+
+class C2f(nn.Module):
+    """Cross-stage partial block: split + n bottlenecks + concat, in the
+    order ``[a, b, *bottleneck outputs]``."""
+
+    def __init__(self, c_in: int, c_out: int, n: int = 1, shortcut: bool = True):
+        super().__init__()
+        hidden = c_out // 2
+        self.cv1 = ConvBnSilu(c_in, 2 * hidden, 1)
+        self.cv2 = ConvBnSilu((2 + n) * hidden, c_out, 1)
+        self.m = nn.ModuleList(Bottleneck(hidden, shortcut) for _ in range(n))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = list(self.cv1(x).chunk(2, dim=1))
+        for block in self.m:
+            outs.append(block(outs[-1]))
+        return self.cv2(torch.cat(outs, dim=1))
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling (fast): 3 chained 5x5 stride-1 max pools
+    (implicit -inf padding, as flax's max_pool)."""
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__()
+        hidden = c_in // 2
+        self.cv1 = ConvBnSilu(c_in, hidden, 1)
+        self.cv2 = ConvBnSilu(4 * hidden, c_out, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = [self.cv1(x)]
+        for _ in range(3):
+            y.append(F.max_pool2d(y[-1], 5, stride=1, padding=2))
+        return self.cv2(torch.cat(y, dim=1))
+
+
+def _upsample2(x: torch.Tensor) -> torch.Tensor:
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def _branch(c_in: int, c_mid: int, c_out: int) -> nn.Sequential:
+    return nn.Sequential(ConvBnSilu(c_in, c_mid, 3), ConvBnSilu(c_mid, c_mid, 3),
+                         nn.Conv2d(c_mid, c_out, 1))
+
+
+class Head(nn.Module):
+    """ultralytics v8 Detect/OBB head: ``cv2`` box (DFL logits), ``cv3``
+    classes, ``cv4`` angle (obb), one branch per scale; branch widths as
+    ultralytics', so real checkpoints map tensor for tensor."""
+
+    def __init__(self, chans: Tuple[int, int, int], num_classes: int, task: str, reg_max: int):
+        super().__init__()
+        c0 = chans[0]
+        box_ch = max(16, c0 // 4, 4 * reg_max)
+        cls_ch = max(c0, min(num_classes, 100))
+        self.cv2 = nn.ModuleList(_branch(c, box_ch, 4 * reg_max) for c in chans)
+        self.cv3 = nn.ModuleList(_branch(c, cls_ch, num_classes) for c in chans)
+        self.cv4 = (nn.ModuleList(_branch(c, max(c0 // 4, 1), 1) for c in chans)
+                    if task == "obb" else None)
+
+    def forward(self, feats: List[torch.Tensor]) -> Dict[str, List[torch.Tensor]]:
+        def nhwc(t: torch.Tensor) -> torch.Tensor:
+            return t.permute(0, 2, 3, 1)
+
+        out = {"box": [nhwc(b(f)) for b, f in zip(self.cv2, feats)],
+               "cls": [nhwc(c(f)) for c, f in zip(self.cv3, feats)]}
+        if self.cv4 is not None:
+            out["angle"] = [nhwc(a(f)) for a, f in zip(self.cv4, feats)]
+        return out
+
+
+class YOLO(nn.Module):
+    """Backbone + PAN neck + per-scale heads (detect or obb).
+
+    ``forward(x [B, 3, S, S])`` returns per-scale NHWC maps at strides
+    (8, 16, 32): ``box`` [B, H, W, 4*reg_max] DFL logits, ``cls`` [B, H, W,
+    num_classes] and, for obb, ``angle`` [B, H, W, 1]."""
+
+    def __init__(self, num_classes: int = 80, size: str = "n", task: str = "detect",
+                 reg_max: int = 16):
+        super().__init__()
+        if task not in TASKS:
+            raise ValueError(f"task {task!r} is not ported yet (ported: {TASKS})")
+        self.num_classes, self.size, self.task, self.reg_max = num_classes, size, task, reg_max
+        depth, width, max_ch = SIZES[size]
+
+        def ch(base: int) -> int:
+            return _make_divisible(min(base, max_ch) * width)
+
+        def reps(base: int) -> int:
+            return max(1, round(base * depth))
+
+        c64, c128, c256, c512, c1024 = ch(64), ch(128), ch(256), ch(512), ch(1024)
+        # keys are the ultralytics yolov8 yaml indices (10, 11, 13, 14, 17,
+        # 20 are the parameterless upsamples and concats)
+        self.model = nn.ModuleDict({
+            "0": ConvBnSilu(3, c64, 3, 2),
+            "1": ConvBnSilu(c64, c128, 3, 2),
+            "2": C2f(c128, c128, reps(3)),
+            "3": ConvBnSilu(c128, c256, 3, 2),
+            "4": C2f(c256, c256, reps(6)),
+            "5": ConvBnSilu(c256, c512, 3, 2),
+            "6": C2f(c512, c512, reps(6)),
+            "7": ConvBnSilu(c512, c1024, 3, 2),
+            "8": C2f(c1024, c1024, reps(3)),
+            "9": SPPF(c1024, c1024),
+            "12": C2f(c1024 + c512, c512, reps(3), shortcut=False),
+            "15": C2f(c512 + c256, c256, reps(3), shortcut=False),
+            "16": ConvBnSilu(c256, c256, 3, 2),
+            "18": C2f(c256 + c512, c512, reps(3), shortcut=False),
+            "19": ConvBnSilu(c512, c512, 3, 2),
+            "21": C2f(c512 + c1024, c1024, reps(3), shortcut=False),
+            "22": Head((c256, c512, c1024), num_classes, task, reg_max),
+        })
+
+    def forward(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+        m = self.model
+        x = m["2"](m["1"](m["0"](x)))
+        p3 = m["4"](m["3"](x))
+        p4 = m["6"](m["5"](p3))
+        p5 = m["9"](m["8"](m["7"](p4)))
+        n4 = m["12"](torch.cat([_upsample2(p5), p4], 1))
+        n3 = m["15"](torch.cat([_upsample2(n4), p3], 1))
+        n4b = m["18"](torch.cat([m["16"](n3), n4], 1))
+        n5 = m["21"](torch.cat([m["19"](n4b), p5], 1))
+        return m["22"]([n3, n4b, n5])
+
+    @torch.no_grad()
+    def fuse_(self, dtype: torch.dtype = torch.float32) -> "YOLO":
+        """Fold every BatchNorm into its conv (computed in float32 from the
+        current parameters, on their device) and cast the folded tensors and
+        the head's plain convs to ``dtype``. Call again after ``.to()``."""
+        for mod in self.modules():
+            if isinstance(mod, ConvBnSilu):
+                mod.fuse_(dtype)
+        for branches in (self.model["22"].cv2, self.model["22"].cv3, self.model["22"].cv4 or []):
+            for seq in branches:
+                seq[2].to(dtype=dtype, memory_format=torch.channels_last)
+        return self
+
+
+def init_parameters_(model: YOLO, seed: int = 0) -> YOLO:
+    """Seeded random init with flax's defaults: conv kernels lecun-normal
+    (truncated at 2 sigma), biases 0, BatchNorm scale 1, shift 0, mean 0,
+    variance 1. A ``torch.Generator`` on the CPU makes the numbers, so they
+    are the same on every machine for one seed."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Conv2d):
+                fan_in = mod.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                w = torch.empty(mod.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
+                mod.weight.copy_(w)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+    return model
+
+
+def create_model(num_classes: int, size: str = "n", task: str = "detect", seed: int = 0) -> YOLO:
+    """A float32 model on the CPU with seeded random parameters."""
+    return init_parameters_(YOLO(num_classes, size, task), seed).eval()
+
+
+def letterbox_params(h: int, w: int, image_size: int = 640) -> Tuple[float, int, int, int, int]:
+    """Aspect-preserving letterbox geometry for an h x w frame into an
+    image_size square, matching ultralytics' LetterBox (resize by the min
+    scale, center-pad): returns (scale, pad_left, pad_top, new_h, new_w).
+    Undo a model-space coordinate v with (v - pad) / scale."""
+    scale = min(image_size / h, image_size / w)
+    nh, nw = round(h * scale), round(w * scale)
+    dh, dw = (image_size - nh) / 2, (image_size - nw) / 2
+    return scale, round(dw - 0.1), round(dh - 0.1), nh, nw
+
+
+@functools.lru_cache(maxsize=16)
+def _interp_matrix(out_n: int, in_n: int, scale: float = 1.0) -> np.ndarray:
+    """Dense 1-D bilinear interpolation matrix (cv2 pixel-center alignment:
+    src = (dst+0.5)*in/out - 0.5), optionally pre-scaled."""
+    f = (np.arange(out_n) + 0.5) * (in_n / out_n) - 0.5
+    i0 = np.clip(np.floor(f), 0, in_n - 1).astype(np.int64)
+    i1 = np.clip(i0 + 1, 0, in_n - 1)
+    w = np.clip(f - i0, 0.0, 1.0).astype(np.float32)
+    M = np.zeros((out_n, in_n), np.float32)
+    np.add.at(M, (np.arange(out_n), i0), (1.0 - w) * scale)
+    np.add.at(M, (np.arange(out_n), i1), w * scale)
+    return M
+
+
+_MATRICES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _matrices(nh: int, h: int, nw: int, w: int, device: torch.device):
+    key = (nh, h, nw, w, str(device))
+    if key not in _MATRICES:
+        _MATRICES[key] = (torch.from_numpy(_interp_matrix(nh, h)).to(device),
+                          torch.from_numpy(_interp_matrix(nw, w)).to(device))
+    return _MATRICES[key]
+
+
+def preprocess_fused(image_u8: torch.Tensor, image_size: int = 640) -> torch.Tensor:
+    """Matmul-form letterbox: u8 BGR ``[..., H, W, 3]`` -> f32 RGB ``[..., S,
+    S, 3]`` in [0, 1] (NHWC, the JAX package's layout). The bilinear resize
+    is two constant-matrix products (rows, then columns) in full float32,
+    then cv2's u8 re-quantization floor(x + 0.5), /255 and the 114-gray pad.
+    Equal to the JAX package's ``preprocess_fused`` at the u8 level."""
+    img = image_u8.flip(-1)  # BGR -> RGB
+    h, w = img.shape[-3], img.shape[-2]
+    _, left, top, nh, nw = letterbox_params(h, w, image_size)
+    x = img.float()
+    if (nh, nw) != (h, w):
+        R, C = _matrices(nh, h, nw, w, x.device)
+        x = torch.einsum("rh,...hwc->...rwc", R, x)
+        x = torch.einsum("qw,...rwc->...rqc", C, x)
+        x = torch.clamp(torch.floor(x + 0.5), 0, 255) / 255.0
+    else:
+        x = x / 255.0
+    if (nh, nw) != (image_size, image_size):
+        pad = (0, 0, left, image_size - nw - left, top, image_size - nh - top)
+        x = F.pad(x, pad, value=float(np.float32(114.0 / 255.0)))
+    return x

@@ -1,0 +1,183 @@
+"""High-level YOLO predictor: the ultralytics-YOLO-shaped entry point.
+
+Port of ``cuauv_vision_pipeline_tpu.models.yolo.predictor`` (detect and
+obb; the int8 and w8a8 modes are not ported): construct from a weight path
+(or task + class names), ``.task``, ``.to(device)``, and ``.track(image)``
+returning objects whose ``.summary()`` yields the dicts MAP_FN parses. The
+preamble, conv stack, decode and NMS run on the model's device (``cuda:0``
+unless told otherwise); tracking is host-side (tracker.py).
+
+Precision: ``half_precision=True`` (serving) runs the conv stack in bf16 —
+every BatchNorm folded into its conv in float32, the folded weights and the
+head convs then cast to bf16, activations bf16 — and casts the head outputs
+to float32 for decode. ``half_precision=False`` is the exact-f32 debugging
+mode: the forward then runs with TF32 off for convolutions and matrix
+products (Hopper's cuDNN takes TF32 for f32 convs by default). The
+letterbox's matrix products are always full float32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import warnings
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...core.device import resolve_device
+from .decode import decode, summarize
+from .model import create_model, letterbox_params, preprocess_fused
+from .tracker import ByteTracker
+from .weights import load_checkpoint
+
+DEFAULT_CLASS_NAMES = [
+    "torpedo_board", "shark_hole", "saw_hole",
+    "shark", "saw", "gate_behind",
+    "pole_red", "pole_white",
+    "bin_shark", "bin_saw", "bin",
+    "spoon", "cup", "pink_basket", "yellow_basket",
+]
+
+
+class _Result:
+    """Mimics ultralytics Results just enough for .summary()."""
+
+    def __init__(self, summary: List[Dict]):
+        self._summary = summary
+
+    def summary(self) -> List[Dict]:
+        return self._summary
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Full float32 convolutions and matrix products inside the block."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+
+
+class YoloModel:
+    """YOLO with the call surface modules/yolo.py expects."""
+
+    def __init__(
+        self,
+        weight_path: Optional[str] = None,
+        task: str = "obb",
+        class_names: Optional[Sequence[str]] = None,
+        size: str = "n",
+        image_size: Optional[int] = None,
+        conf_thresh: float = 0.25,
+        max_det: int = 32,
+        half_precision: bool = True,
+        nms_pool: int = 512,
+        device=None,
+    ):
+        """``device``: ``None`` is ``cuda:0`` (raises without CUDA), else as
+        ``core.device.resolve_device`` reads it (``"cpu"``, ``N``, a
+        ``torch.device``). With no weight file the model serves seeded random
+        init (seed 0). ``nms_pool`` bounds the NMS candidate set (exact
+        while the above-``conf_thresh`` candidates fit it);
+        ``CUAUV_YOLO_NMS_POOL`` overrides it."""
+        if os.environ.get("CUAUV_YOLO_QUANT") or os.environ.get("CUAUV_YOLO_INT8") == "1":
+            raise ValueError("the int8 and w8a8 YOLO modes are not ported to PyTorch yet")
+        # None = serve at the checkpoint's embedded training resolution
+        # (else 640); an explicit value always wins
+        self.image_size = image_size if image_size is not None else 640
+        self.half_precision = half_precision
+        self.conf_thresh = conf_thresh
+        self.max_det = max_det
+        self.nms_pool = int(os.environ.get("CUAUV_YOLO_NMS_POOL", nms_pool))
+        self._tracker = ByteTracker()
+
+        if weight_path and os.path.exists(weight_path):
+            self.model, meta = load_checkpoint(weight_path)
+            self.task = meta.get("task", task)
+            if image_size is None and meta.get("image_size"):
+                self.image_size = int(meta["image_size"])
+            # `or`: a .pt without embedded names stores []
+            self.class_names = list(meta.get("names") or class_names or DEFAULT_CLASS_NAMES)
+        else:
+            if weight_path:
+                warnings.warn(
+                    f"YOLO weight '{weight_path}' not found — serving RANDOM-INIT "
+                    f"weights (detections are noise). Fix the path / "
+                    f"CUAUV_YOLO_WEIGHT for production.",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+            self.class_names = list(class_names or DEFAULT_CLASS_NAMES)
+            self.task = task
+            self.model = create_model(len(self.class_names), size=size, task=task)
+        self.to(resolve_device(device))
+
+    def to(self, device) -> "YoloModel":
+        """Place the model on ``device`` (a ``torch.device``, ``"cpu"``,
+        ``"cuda:N"``) and refold its BatchNorms there for this precision."""
+        self.device = torch.device(device)
+        self.dtype = torch.bfloat16 if self.half_precision else torch.float32
+        self.model.to(self.device, memory_format=torch.channels_last)
+        self.model.fuse_(self.dtype)
+        return self
+
+    def head_outputs(self, images_u8: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+        """[K, H, W, 3] u8 BGR on the device -> the raw per-scale head maps
+        (NHWC, float32): letterbox and conv stack, before decode."""
+        with torch.inference_mode():
+            with _no_tf32():
+                x = preprocess_fused(images_u8, self.image_size)
+            # NHWC memory seen as NCHW: a channels_last tensor, no copy
+            x = x.to(self.dtype).permute(0, 3, 1, 2)
+            with contextlib.nullcontext() if self.half_precision else _no_tf32():
+                outputs = self.model(x)
+            return {k: [o.float() for o in v] for k, v in outputs.items()}
+
+    def _forward(self, images_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """[K, H, W, 3] u8 BGR on the device -> decode dict, leaves [K, ...]."""
+        outputs = self.head_outputs(images_u8)
+        with torch.inference_mode():
+            return decode(outputs, self.image_size, reg_max=self.model.reg_max,
+                          conf_thresh=self.conf_thresh, max_det=self.max_det,
+                          nms_pool=self.nms_pool)
+
+    def _to_device(self, image) -> torch.Tensor:
+        if isinstance(image, np.ndarray):
+            image = torch.from_numpy(np.ascontiguousarray(image))
+        return image.to(self.device)
+
+    def device_decode(self, image) -> Dict[str, torch.Tensor]:
+        """One ``[H, W, 3]`` u8 BGR frame (numpy or tensor) -> the
+        fixed-shape decode dict of device tensors (``[max_det]`` leaves)."""
+        out = self._forward(self._to_device(image)[None])
+        return {k: v[0] for k, v in out.items()}
+
+    def device_decode_batch(self, images) -> Dict[str, torch.Tensor]:
+        """Same-camera batched forward: ``[K, H, W, 3]`` queue-drained frames
+        (the shape a ``@device_fn(batch=K)`` dispatch carries) as ONE K-batch
+        conv stack; every leaf of the decode dict gains a leading lane axis."""
+        return self._forward(self._to_device(images))
+
+    def summarize_decoded(self, decoded_np: Dict, orig_hw: Tuple[int, int]) -> List[Dict]:
+        """Host half: undo the letterbox (orig = (model_coord - pad) /
+        scale) and format ultralytics-style summary dicts."""
+        h, w = orig_hw
+        scale, left, top, _, _ = letterbox_params(h, w, self.image_size)
+        return summarize(decoded_np, self.class_names, (1.0 / scale, 1.0 / scale), self.task,
+                         pad=(left, top), clip_wh=(float(w), float(h)))
+
+    def predict(self, image: np.ndarray) -> List[Dict]:
+        decoded = {k: v.cpu().numpy() for k, v in self.device_decode(image).items()}
+        return self.summarize_decoded(decoded, image.shape[:2])
+
+    def track(self, image: np.ndarray, verbose: bool = False) -> List[_Result]:
+        summary = self.predict(image)
+        self._tracker.update(summary)
+        return [_Result(summary)]
+
+    def __call__(self, image: np.ndarray) -> List[_Result]:
+        return [_Result(self.predict(image))]

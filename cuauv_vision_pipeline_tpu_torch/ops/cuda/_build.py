@@ -9,9 +9,12 @@ serialises builders: a module process and ``chip_smoke.py`` may both trigger
 the first build. All missing libraries are built together, one ``nvcc`` per
 source, started at once.
 
-The kernels are integer-only, so ``--fmad`` does not change their results;
-a float kernel that must match the reference bit for bit (the HLS slice)
-will need ``--fmad=false`` here.
+The CCL and morphology kernels are integer-only, so ``--fmad`` does not
+change their results. A float kernel that must match its plain version bit
+for bit gets ``--fmad=false`` in ``EXTRA_FLAGS`` (``nms.cu``: without it nvcc
+contracts ProbIoU's products into FMAs and an IoU near the threshold can flip
+a pick). A source's extra flags enter its library's hash; a source without
+any hashes as before.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -33,6 +36,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# per-source nvcc flags after NVCC_FLAGS
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"nms": ("--fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -48,9 +54,16 @@ def _nvcc() -> str:
     return found
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    if name in EXTRA_FLAGS:
+        digest.update(" ".join(EXTRA_FLAGS[name]).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -71,7 +84,7 @@ def build(names: Optional[List[str]] = None) -> float:
         for name in todo:
             out = library_path(name)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
             procs[name] = (
                 subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

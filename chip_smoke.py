@@ -29,7 +29,13 @@ no result):
              candidates, exact ties, none above the threshold, fewer than
              max_det, rotated poles; B=1 and B=8), ProbIoU and AABB, each
              launched twice; picked and valid exact.
-6. yolo    — the YOLO-OBB serving path (YoloModel: YOLOv8n-obb, 15 classes,
+6. spacing — the greedy spacing kernel against its plain version on card
+             tensors (tests/spacing_cases.py: K = 1 to 1024, no candidate, a
+             dense 3-px grid, exact-tie plateaus, repeated points, other
+             min_distances; and the top-512 candidates of four 720p bins
+             scenes and of the pose template), each launched twice, kept
+             sets exact; event-timed and plain ms at the main path's input.
+7. yolo    — the YOLO-OBB serving path (YoloModel: YOLOv8n-obb, 15 classes,
              640, bf16, seeded random init) on 1080p ZED frames: (a) float32
              on the card (TF32 off) against float32 on the CPU: head outputs
              within a few times their measured difference and decoded valid,
@@ -41,7 +47,17 @@ no result):
              the trained fixture in bf16 on the card over 24 synthetic scenes
              (recall and precision >= 0.75); (c) event-timed ms per frame and
              per-frame fps over five 2 s windows.
-7. module  — the real entry points as subprocesses: the synthetic camera
+8. bins    — the bins + pose path (BinDetector, BASELINE config 3: HSV mask,
+             ``fused_morph`` open, detect/describe with the spacing kernel,
+             2-NN against the builtin template) at 720p on the card against
+             the same chain on the CPU, four frames: cleaned mask and
+             overlay exact, keypoints and n_valid equal, descriptor rows
+             past 1e-5 counted, the pose quad within 1 px and matches and
+             inliers within 2; the host leg's shm.bins_pose visible with >= 8
+             inliers within 12 px of the pasted plate; wall ms, fps over five
+             2 s windows and the host leg's ms. TF32 must be off again after
+             the YOLO phase's control.
+9. module  — the real entry points as subprocesses: the synthetic camera
              (``--scene zed``, the ZED's four planes) and
              ``modules.red_buoy``, both on a direction named for this run
              and with ``CUAUV_SHM_NAMESPACE`` set to this run's own
@@ -53,15 +69,21 @@ no result):
              count; beside it ``modules.yolo`` (no weight: seeded random
              init) on the same camera, until ``shm.yolo_status.frames``
              advances, with its ``latency_ms``, its posts and its
-             ``nms_fixed`` launches; then removes the blocks and groups this
-             run made.
+             ``nms_fixed`` launches; and a synthetic ``bins`` camera at 720p
+             (one frame, cycled) with ``modules.bins`` and the builtin pose
+             template, until ``shm.bins_pose.seq_frames`` advances with a
+             visible pose on the plate, with its ``latency_ms``, its post
+             and its ``fused_morph`` and ``spacing_select`` launches; then
+             removes the blocks and groups this run made.
 
-Launch counts are set to 0 just before the chain phase and read after the
-module phase (plus the module processes' own logged counts): that is the
-main path's run. Then the CCL kernels', the morphology's and the YOLO
-path's device time (torch.profiler: preamble, conv stack, decode, NMS)
-beside their event-timed wall time, a ``{"kernels": [...]}`` line and,
-last, the ``{"ok": true, "device": ...}`` line.
+Launch counts are set to 0 just before each path (the chain phase, the
+YOLO phase, the bins phase) and read just after it; with the module
+processes' own logged counts they are the main path's launches, and each
+kernel of a path must have launched in that path's run. Then the CCL
+kernels', the morphology's, the YOLO path's (preamble, conv stack, decode,
+NMS) and the bins path's (per stage) device time (torch.profiler) beside
+their event-timed wall time, a ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, "device": ...}`` line.
 
 ``--morph-variant NAME=SOURCE.cu`` (repeatable) builds another source with
 the C entry point of ``csrc/morph.cu`` (an earlier version, a design
@@ -86,6 +108,7 @@ import sys
 import threading
 import time
 import uuid
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -109,8 +132,19 @@ _F32_RATE = 67e12
 NMS_OPS_PER_IOU = 38
 MORPH_OPS = ("open_close", "open", "close")
 # CUDA launches behind one wrapper call (csrc/ccl.cu: local, border, final)
-CUDA_LAUNCHES_PER_CALL = {"label_cuda": 3, "label_cuda_batched": 3, "fused_morph": 1, "nms_fixed": 1}
+CUDA_LAUNCHES_PER_CALL = {"label_cuda": 3, "label_cuda_batched": 3, "fused_morph": 1, "nms_fixed": 1,
+                          "spacing_select": 1}
 YOLO_FIXTURE = REPO / "tests" / "fixtures" / "synth_pico_detect.msgpack"
+# the bins path: the ZED's HD720 frames, the scenes' times, card-vs-CPU limits
+BINS_H, BINS_W = 720, 1280
+BINS_TS = (0.0, 1.0, 2.5, 4.0)
+BINS_DES_ATOL = 1e-5  # a descriptor row within this of the CPU's counts as equal
+BINS_QUAD_PX = 1  # pose quad corners, card against CPU
+BINS_MATCH_SLACK = 2  # ratio-test matches and RANSAC inliers, card against CPU
+BINS_PLATE_PX = 12  # pose quad against the pasted plate (the JAX test's limit)
+# integer operations of one distance test (dy, dx, two products, their sum,
+# the compare)
+SPACING_OPS_PER_TEST = 6
 
 
 def emit(phase: str, **fields) -> None:
@@ -639,6 +673,75 @@ def phase_nms(dev):
     emit("nms", checks=len(checks), cases=checks)
 
 
+def spacing_work(kept: torch.Tensor, cand: torch.Tensor) -> int:
+    """Distance tests the sequential greedy selection needs on these
+    candidates: each candidate against the kept stronger ones."""
+    kept_before = torch.cumsum(kept.long(), 0) - kept.long()
+    return int(kept_before[cand].sum())
+
+
+def bins_grays():
+    """The bins path's 720p scenes and the pose template, as u8 gray (numpy)."""
+    from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import bin_texture, bins_frame
+    from cuauv_vision_pipeline_tpu_torch.ops.color_np import bgr_to_gray_np
+
+    grays = {f"bins_720p_t{t}": bgr_to_gray_np(bins_frame((BINS_H, BINS_W), t)) for t in BINS_TS}
+    grays["template"] = bgr_to_gray_np(np.asarray(bin_texture()))
+    return grays
+
+
+def phase_spacing(dev, rate):
+    """The spacing kernel against its plain version (torch ops) on the same
+    card tensors: the cases of tests/spacing_cases.py (also against the
+    sequential greedy in numpy) and the top-512 candidates of each bins
+    scene and of the template, each launched twice; kept sets exact. Then
+    the kernel's event-timed ms, the plain version's and the bound at the
+    main path's input (frame t=1.0's candidates); its device ms comes after
+    the main path (phase_bins_device)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from spacing_cases import cases, greedy
+
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import spacing_select
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda.spacing_kernel import spacing_select_plain
+    from cuauv_vision_pipeline_tpu_torch.ops.feature import detect_candidates
+
+    inputs = {case: (*(torch.from_numpy(a).to(dev) for a in arrays[:3]), arrays[3])
+              for case, arrays in cases().items()}
+    for name, gray in bins_grays().items():
+        inputs[f"candidates_{name}"] = (*detect_candidates(torch.from_numpy(gray).to(dev)), 8)
+    checks = []
+    for case, (ys, xs, cand, md) in inputs.items():
+        want = spacing_select_plain(ys, xs, cand, md)
+        if not case.startswith("candidates_"):
+            np.testing.assert_array_equal(want.cpu().numpy(),
+                                          greedy(ys.cpu().numpy(), xs.cpu().numpy(), cand.cpu().numpy(), md))
+        for rep in range(2):
+            got = spacing_select(ys, xs, cand, md)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"spacing_select differs from its plain version on {case} (launch {rep})")
+        checks.append(case)
+    ys, xs, cand, md = inputs["candidates_bins_720p_t1.0"]
+    kept = spacing_select_plain(ys, xs, cand, md)
+    K = cand.numel()
+    tests = spacing_work(kept, cand)
+    # ys, xs and cand read once, kept written once
+    t_bytes = K * (4 + 4 + 1 + 1) / rate * 1e3
+    t_ops = tests * SPACING_OPS_PER_TEST / _OPS_RATE * 1e3
+    row = dict(
+        source="cuauv_vision_pipeline_tpu_torch/csrc/spacing.cu",
+        replaces="cuauv_vision_pipeline_tpu/ops/feature.py:618",
+        ms=cuda_ms(lambda: spacing_select(ys, xs, cand, md), 100),
+        plain_ms=cuda_ms(lambda: spacing_select_plain(ys, xs, cand, md), 20, warmup=2),
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, max_abs_err=0,
+    )
+    emit("spacing", checks=len(checks), cases=checks, K=K, candidates=int(cand.sum()),
+         kept=int(kept.sum()), distance_tests=tests, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    return row, (ys, xs, cand, md)
+
+
 def zed_frames(n: int):
     """1080p ZED forward planes of the synthetic camera (numpy BGR u8)."""
     from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
@@ -676,14 +779,14 @@ def tf32_allowed():
     the card-vs-CPU check)."""
     from cuauv_vision_pipeline_tpu_torch.models.yolo import predictor
 
-    real = predictor._no_tf32
+    real = predictor.full_f32
     flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    predictor._no_tf32 = contextlib.nullcontext
+    predictor.full_f32 = contextlib.nullcontext
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     try:
         yield
     finally:
-        predictor._no_tf32 = real
+        predictor.full_f32 = real
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
@@ -953,12 +1056,265 @@ def phase_yolo_device(serve, image, pool, rate):
     return row
 
 
-def phase_module():
-    # this run's own names: the camera's direction (so the bus block and the
-    # module's post and tuner blocks) and the shm namespace of its groups
-    run_id = uuid.uuid4().hex[:12]
+def bins_plate(t: float):
+    """Top-left corner (x0, y0) and size (w, h) of the plate in bins_frame."""
+    from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import bin_texture
+
+    th, tw = bin_texture().shape[:2]
+    y0 = int((BINS_H - th) * (0.5 + 0.35 * np.sin(t * 0.5)))
+    x0 = int((BINS_W - tw) * (0.5 + 0.35 * np.cos(t * 0.7)))
+    return x0, y0, tw, th
+
+
+def plate_error(g, t: float) -> float:
+    """Largest distance (px) of the pose quad's first and third corners from
+    the plate's (the JAX test's check), from a bins_pose reading."""
+    x0, y0, tw, th = bins_plate(t)
+    return max(abs(g.quad_x1 - x0), abs(g.quad_y1 - y0), abs(g.quad_x3 - (x0 + tw)), abs(g.quad_y3 - (y0 + th)))
+
+
+def bin_detectors(dev):
+    """BinDetector with the builtin pose template on the card and on the
+    CPU (the template described on each device)."""
+    from cuauv_vision_pipeline_tpu_torch.modules.bins import BinDetector
+
+    os.environ["CUAUV_BINS_POSE_TEMPLATE"] = "builtin"
+    try:
+        card = BinDetector(video_sources=["forward"], tuners=[], argv=["--device", str(dev.index or 0)])
+        host = BinDetector(video_sources=["forward"], tuners=[], argv=["--device", "cpu"])
+    finally:
+        del os.environ["CUAUV_BINS_POSE_TEMPLATE"]
+    return card, host
+
+
+def valid_rects(cleaned):
+    """The host leg's rectangles (BinDetector.on_device_result's filter)."""
+    from cuauv_vision_pipeline_tpu_torch.utils.feature import min_enclosing_rect, outer_contours
+
+    out = []
+    for contour in outer_contours(cleaned):
+        (_, (w, h), _) = rect = min_enclosing_rect(contour)
+        if w * h >= 500 and min(w, h) > 0 and 1.0 <= max(w, h) / min(w, h) <= 3.0:
+            out.append(rect)
+    return out
+
+
+def host_syncs(fn) -> list:
+    """The synchronising CUDA calls torch reports during ``fn()`` (its sync
+    debug mode; setting the mode itself warns that it is a prototype)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message)[:200] for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host-clock ms of ``fn()``."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_bins(dev):
+    """The bins + pose path (BASELINE config 3) at full width: BinDetector's
+    device chain on the card against the same chain on the CPU on four 720p
+    bins scenes: cleaned mask and overlay exact, n_valid and keypoints
+    equal, the Shi-Tomasi response's difference reported (its last four
+    operations round on each device), descriptor rows past BINS_DES_ATOL
+    counted (an atan2 ulp can flip
+    a dominant-orientation bin), the pose quad within BINS_QUAD_PX and
+    matches/inliers within BINS_MATCH_SLACK; the host leg on the card's
+    fetch writes shm.bins_pose visible with >= 8 inliers within
+    BINS_PLATE_PX of the plate; the chain on the card synchronises nowhere
+    (torch's sync debug mode). Then the chain's event-timed wall ms, fps
+    over five 2 s windows, wrapper calls per frame, and the host leg's ms
+    (contours + rectangles; ratio test + RANSAC)."""
+    from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import bins_frame
+    from cuauv_vision_pipeline_tpu_torch.core import shm
+    from cuauv_vision_pipeline_tpu_torch.core.base import DeviceResultMeta
+    from cuauv_vision_pipeline_tpu_torch.ops.color import bgr_to_gray
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import spacing_select
+    from cuauv_vision_pipeline_tpu_torch.ops.feature import detect_describe, min_eigenvalue_map
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for matrix products before the bins phase")
+    card, host = bin_detectors(dev)
+    card.post = lambda name, image, color_space="BGR": None
+    nq = card._pose_sift.sources["bin"]["des_prep"][1]
+    frames = {t: bins_frame((BINS_H, BINS_W), t) for t in BINS_TS}
+    images = [torch.from_numpy(f).to(dev) for f in frames.values()]
+    out = {"template_keypoints": nq,
+           "template_kp_equal": bool(np.array_equal(card._pose_sift.sources["bin"]["kp"],
+                                                    host._pose_sift.sources["bin"]["kp"]))}
+    failures = [] if out["template_kp_equal"] else ["template keypoints differ card vs CPU"]
+    rows = {}
+    for (t, frame), img in zip(frames.items(), images):
+        r, p = card.bins_chain(img, tuners={}, want_posts=True)
+        r = {k: v.cpu().numpy() for k, v in r.items()}
+        p = {k: v.cpu().numpy() for k, v in p.items()}
+        hr, hp = host.bins_chain(torch.from_numpy(frame), tuners={}, want_posts=True)
+        hr = {k: v.numpy() for k, v in hr.items()}
+        hp = {k: v.numpy() for k, v in hp.items()}
+        # descriptors, from the chain's own detect_describe on each device (a
+        # comparison: its spacing launch is not the main path's)
+        before = spacing_select.launches
+        gray = bgr_to_gray(img)
+        _, des_c, n_c = detect_describe(gray)
+        _, des_h, n_h = detect_describe(gray.cpu())
+        spacing_select.launches = before
+        row_err = (des_c.cpu() - des_h).abs().max(dim=1).values
+        resp_err = (min_eigenvalue_map(gray).cpu() - min_eigenvalue_map(gray.cpu())).abs()
+        got = card._pose_sift.match_device_topk("bin", r["pose_d2"], r["pose_idx"], r["kp"], min_match=8)
+        want = host._pose_sift.match_device_topk("bin", hr["pose_d2"], hr["pose_idx"], hr["kp"], min_match=8)
+        meta = DeviceResultMeta(aliases=("forward",), acquisition_time=int(time.monotonic() * 1000),
+                                submit_time=time.monotonic())
+        card.on_device_result(r, {k: v.copy() for k, v in p.items()}, meta)  # it draws on the overlay
+        pose = shm.bins_pose.get()
+        row = {
+            "cleaned_equal": bool(np.array_equal(r["cleaned"], hr["cleaned"])),
+            "overlay_pixels_differing": int((p["overlay"] != hp["overlay"]).sum()),
+            "n_valid": [int(n_c), int(n_h)],
+            "kp_equal": bool(np.array_equal(r["kp"], hr["kp"])),
+            "resp_max_abs_err": float(resp_err.max()),
+            "resp_pixels_differing": int((resp_err > 0).sum()),
+            "des_max_abs_err": float(row_err.max()),
+            "des_rows_past_atol": int((row_err > BINS_DES_ATOL).sum()),
+            "pose_idx_differing": int((r["pose_idx"][:nq] != hr["pose_idx"][:nq]).sum()),
+            "pose_d2_max_abs_err": float(np.abs(r["pose_d2"][:nq] - hr["pose_d2"][:nq]).max()),
+            "quad": got[0]["quad"].tolist() if got else None,
+            "cpu_quad": want[0]["quad"].tolist() if want else None,
+            "matches": [got[0]["matches"] if got else 0, want[0]["matches"] if want else 0],
+            "inliers": [got[0]["inliers"] if got else 0, want[0]["inliers"] if want else 0],
+            "shm_visible": bool(pose.visible), "shm_inliers": int(pose.inliers),
+            "shm_plate_err_px": plate_error(pose, t),
+        }
+        name = f"t{t}"
+        failures += [f"{name}: {key} is false" for key in ("cleaned_equal", "kp_equal") if not row[key]]
+        if row["overlay_pixels_differing"]:
+            failures.append(f"{name}: overlay differs in {row['overlay_pixels_differing']} pixels")
+        if row["n_valid"][0] != row["n_valid"][1]:
+            failures.append(f"{name}: n_valid {row['n_valid']}")
+        if row["des_rows_past_atol"] > 0.1 * row["n_valid"][1]:
+            failures.append(f"{name}: {row['des_rows_past_atol']} descriptor rows past {BINS_DES_ATOL}")
+        if not (got and want):
+            failures.append(f"{name}: no pose (card {len(got)}, CPU {len(want)})")
+        else:
+            if np.abs(np.asarray(row["quad"]) - np.asarray(row["cpu_quad"])).max() > BINS_QUAD_PX:
+                failures.append(f"{name}: quad {row['quad']} against the CPU's {row['cpu_quad']}")
+            for key in ("matches", "inliers"):
+                if abs(row[key][0] - row[key][1]) > BINS_MATCH_SLACK:
+                    failures.append(f"{name}: {key} {row[key]}")
+        if not (row["shm_visible"] and row["shm_inliers"] >= 8 and row["shm_plate_err_px"] < BINS_PLATE_PX):
+            failures.append(f"{name}: shm.bins_pose {row['shm_visible']}, {row['shm_inliers']} inliers, "
+                            f"{row['shm_plate_err_px']} px from the plate")
+        rows[name] = row
+    out["card_vs_cpu"] = rows
+    # the chain on the card waits for the host nowhere (the spacing selection
+    # included): torch warns at every call that synchronises; a read of one
+    # value is the control that the warning comes
+    syncs = host_syncs(lambda: card.bins_chain(images[1], tuners={}, want_posts=True))
+    out["chain_host_syncs"] = len(syncs)
+    out["control_host_syncs"] = len(host_syncs(lambda: images[1].sum().item()))
+    if syncs or not out["control_host_syncs"]:
+        failures.append(f"the chain synchronised {len(syncs)} times: {syncs} "
+                        f"(the control: {out['control_host_syncs']})")
+    if failures:
+        emit("bins_checks", **out)
+        raise AssertionError("bins path: " + "; ".join(failures))
+
+    def chain(k):
+        return card.bins_chain(images[k % len(images)], tuners={}, want_posts=True)
+
+    out["wall_ms_per_frame"] = cuda_ms(lambda: chain(1), 50)
+    rates, calls = [], None
+    for _ in range(FPS_REPEATS):
+        rate, calls = fps_window(chain, 1, FPS_WINDOW_S)
+        rates.append(rate)
+    out["fps_per_frame"] = {"median": statistics.median(rates), "min": min(rates), "max": max(rates),
+                            "windows": rates}
+    out["wrapper_calls_per_frame"] = calls
+    r, _ = chain(1)
+    fetched = {k: v.cpu().numpy() for k, v in r.items()}
+    out["host_ms"] = {
+        "contours_and_rects": host_ms(lambda: valid_rects(fetched["cleaned"])),
+        "ratio_test_and_ransac": host_ms(lambda: card._pose_sift.match_device_topk(
+            "bin", fetched["pose_d2"], fetched["pose_idx"], fetched["kp"], min_match=8)),
+    }
+    emit("bins", **out)
+    return card, images[1], out["wall_ms_per_frame"]
+
+
+def phase_bins_device(card, img, wall_ms, spacing_input):
+    """Where a 720p frame's device time goes on the bins path (profiled
+    after the main path), stage by stage on the chain's own intermediates,
+    and the whole chain: device ms, CUDA kernels per frame, idle share
+    against the unprofiled event-timed wall ms; the spacing kernel's device
+    ms at the main path's input."""
+    from cuauv_vision_pipeline_tpu_torch.modules.bins import _beige_bounds
+    from cuauv_vision_pipeline_tpu_torch.ops.color import bgr_to_gray, bgr_to_hsv
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import fused_morph, spacing_select
+    from cuauv_vision_pipeline_tpu_torch.ops.feature import (
+        describe_at,
+        detect_candidates,
+        detect_describe,
+        min_eigenvalue_map,
+    )
+    from cuauv_vision_pipeline_tpu_torch.ops.threshold import in_range
+    from cuauv_vision_pipeline_tpu_torch.utils.sift import device_match_topk
+
+    F = torch.nn.functional
+    bounds = _beige_bounds(img.device)
+    mask = in_range(bgr_to_hsv(img), *bounds)
+    gray = bgr_to_gray(img)
+    resp = min_eigenvalue_map(gray)
+    ys, xs, cand = detect_candidates(gray)
+    _, des, n = detect_describe(gray)
+    prep = card._pose_sift.sources["bin"]["des_prep"]
+
+    def window_nms():
+        mx = F.max_pool2d(resp[None, None], (17, 1), stride=1, padding=(8, 0))
+        return F.max_pool2d(mx, (1, 17), stride=1, padding=(0, 8))
+
+    stages = {
+        "hsv_inrange": profile_fn(lambda: in_range(bgr_to_hsv(img), *bounds)),
+        "fused_morph_open": profile_fn(lambda: fused_morph(mask, "open")),
+        "gray_sobel_response": profile_fn(lambda: min_eigenvalue_map(bgr_to_gray(img))),
+        "response": profile_fn(lambda: min_eigenvalue_map(gray)),
+        "window_nms": profile_fn(window_nms),
+        "candidates": profile_fn(lambda: detect_candidates(gray)),
+        "spacing": profile_fn(lambda: spacing_select(ys, xs, cand, 8)),
+        "describe_at": profile_fn(lambda: describe_at(gray, ys, xs, oriented=True)),
+        "match_2nn": profile_fn(lambda: device_match_topk(prep, des, n)),
+        "overlay": profile_fn(lambda: (img.float() * 0.7 + mask[..., None].float() * 0.3).to(torch.uint8)),
+        "chain": profile_fn(lambda: card.bins_chain(img, tuners={}, want_posts=True)),
+    }
+    split = {key: stages[key]["device_ms"] for key in
+             ("hsv_inrange", "fused_morph_open", "gray_sobel_response", "window_nms", "spacing",
+              "describe_at", "match_2nn", "overlay")}
+    split["peaks_and_topk"] = (stages["candidates"]["device_ms"] - stages["response"]["device_ms"]
+                               - stages["window_nms"]["device_ms"])
+    whole = stages["chain"]["device_ms"]
+    sp_ys, sp_xs, sp_cand, sp_md = spacing_input
+    spacing_dev, spacing_by_kernel = device_ms(lambda: spacing_select(sp_ys, sp_xs, sp_cand, sp_md))
+    emit("bins_device", wall_ms_per_frame=wall_ms, device_ms_per_frame=whole,
+         device_idle_share=1 - whole / wall_ms, kernels_per_frame=stages["chain"]["kernels"],
+         split_device_ms=split, stages=stages, spacing_device_ms=spacing_dev,
+         spacing_device_ms_by_kernel=spacing_by_kernel)
+
+
+def phase_module(run_id: str):
+    # this run's own names: the cameras' directions (so the bus blocks and
+    # the modules' post and tuner blocks) and the shm namespace of its
+    # groups (set in main)
     direction = f"smoke_{run_id}"
-    os.environ["CUAUV_SHM_NAMESPACE"] = f"smoke-{run_id}"
+    bins_direction = f"{direction}_bins"
     from cuauv_vision_pipeline_tpu_torch.core import shm
     from cuauv_vision_pipeline_tpu_torch.core.base import ModuleReader
     from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BLOCK_STUB
@@ -970,12 +1326,14 @@ def phase_module():
     results.set(visible=False, area=0.0, latency_ms=0.0)
     status = shm.yolo_status
     status.set(frames=0, latency_ms=0.0)
+    pose = shm.bins_pose
+    pose.set(visible=False, seq_frames=0, latency_ms=0.0)
     module_name = f"BuoyLAB-on-{direction}"
     procs = []
 
-    def start(args, name):
+    def start(args, name, **extra_env):
         log = open(logs / f"{name}.log", "w")
-        p = subprocess.Popen([sys.executable, "-m", *args], cwd=REPO, env=env,
+        p = subprocess.Popen([sys.executable, "-m", *args], cwd=REPO, env={**env, **extra_env},
                              stdout=log, stderr=subprocess.STDOUT)
         procs.append((p, log, name))
         return p
@@ -1000,6 +1358,13 @@ def phase_module():
                "--scene", "zed", "--fps", "30"], "source")
         module = start(["cuauv_vision_pipeline_tpu_torch.modules.red_buoy", direction], "module")
         yolo = start(["cuauv_vision_pipeline_tpu_torch.modules.yolo", direction], "yolo")
+        # the bins camera at the ZED's HD720 size: one frame (t = 0), cycled,
+        # so the plate stays where the pose check expects it
+        start(["cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic", bins_direction,
+               "--scene", "bins", "--width", str(BINS_W), "--height", str(BINS_H), "--fps", "30",
+               "--precompute", "1"], "bins_source")
+        bins = start(["cuauv_vision_pipeline_tpu_torch.modules.bins", bins_direction], "bins",
+                     CUAUV_BINS_POSE_TEMPLATE="builtin")
         wait_for(lambda: results.visible.get(), 180, "the first detection")
         wait_for(lambda: results.area.get() == H * W, 10, "a whole-frame area")
         out["area_default_tuners"] = results.area.get()
@@ -1034,7 +1399,31 @@ def phase_module():
                        Path(BLOCK_STUB).parent.glob(Path(BLOCK_STUB).name + f"module_Yolo-on-{direction}_post%*"))
         out["yolo_posts"] = posts
         assert len(posts) >= 7, posts
-        for name, proc in (("module", module), ("yolo", yolo)):
+        # the bins module: pose results advance, visible on the plate, each
+        # with a camera-to-result latency; its post appears
+        wait_for(lambda: pose.seq_frames.get() >= 3, 180, "bins pose results")
+        seen, latencies, readings = pose.seq_frames.get(), [], []
+        deadline = time.monotonic() + 4.0
+        while time.monotonic() < deadline:
+            if pose.seq_frames.get() != seen:
+                seen = pose.seq_frames.get()
+                g = pose.get()
+                latencies.append(g.latency_ms)
+                readings.append((g.visible, g.inliers, plate_error(g, 0.0)))
+            time.sleep(0.01)
+        assert len(latencies) >= 5, f"bins_pose.seq_frames advanced {len(latencies)} times in 4 s"
+        out["bins_frames"] = seen
+        out["bins_latency_ms"] = {"median": statistics.median(latencies), "min": min(latencies),
+                                  "max": max(latencies), "samples": len(latencies)}
+        out["bins_pose"] = {"visible": sum(v for v, _, _ in readings), "samples": len(readings),
+                            "inliers_min": min(i for _, i, _ in readings),
+                            "plate_err_px_max": max(e for _, _, e in readings)}
+        assert all(v and i >= 8 and e < BINS_PLATE_PX for v, i, e in readings), out["bins_pose"]
+        bins_posts = sorted(p.name.split("%")[-1] for p in Path(BLOCK_STUB).parent.glob(
+            Path(BLOCK_STUB).name + f"module_BinDetector-on-{bins_direction}_post%*"))
+        out["bins_posts"] = bins_posts
+        assert [p.split("#")[0] for p in bins_posts] == ["bins"], bins_posts  # name#colorspace
+        for name, proc in (("module", module), ("yolo", yolo), ("bins", bins)):
             proc.send_signal(signal.SIGINT)
             proc.wait(timeout=60)
             assert proc.returncode == 0, f"{name} exited with {proc.returncode}"
@@ -1044,6 +1433,8 @@ def phase_module():
         assert out["module_launches"]["label_cuda"] > 0, out
         assert out["module_launches"]["fused_morph"] > 0, out
         assert out["yolo_launches"]["nms_fixed"] > 0, out
+        assert out["bins_launches"]["fused_morph"] > 0, out
+        assert out["bins_launches"]["spacing_select"] > 0, out
     finally:
         if reader is not None:
             reader.unblock()
@@ -1107,17 +1498,37 @@ def main() -> int:
     emit("build", seconds=time.monotonic() - t0, kernels_seconds=kernels_s, ptxas=ptxas)
 
     dev = torch.device("cuda", 0)
+    # this run's own shm namespace: every group it writes, in this process
+    # and in the module processes, is auv_shm_<group>@smoke-<run_id>
+    run_id = uuid.uuid4().hex[:12]
+    os.environ["CUAUV_SHM_NAMESPACE"] = f"smoke-{run_id}"
     frames = [torch.from_numpy(buoy_frame((H, W), 0.4 * i)).to(dev) for i in range(8)]
     rows, ccl_inputs, masks = phase_kernels(dev, frames, rate)
 
     phase_nms(dev)
+    spacing_row, spacing_input = phase_spacing(dev, rate)
 
-    reset_launch_counts()
-    phase_chain(dev, frames)
-    serve, image, pool = phase_yolo(dev)
-    counts = launch_counts()
-    module = phase_module()
-    for key in ("module_launches", "yolo_launches"):
+    # the main path, path by path: the counts set to 0 just before each path
+    # and read just after it; every kernel of a path must have launched
+    path_kernels = {"red_buoy": ("label_cuda", "label_cuda_batched", "fused_morph"),
+                    "yolo": ("nms_fixed",), "bins": ("fused_morph", "spacing_select")}
+    counts = dict.fromkeys(launch_counts(), 0)
+
+    def run_path(path, drive):
+        reset_launch_counts()
+        result = drive()
+        got = launch_counts()
+        for name in path_kernels[path]:
+            assert got[name] > 0, f"{name} was not launched on the {path} path"
+        for name, n in got.items():
+            counts[name] += n
+        return result
+
+    run_path("red_buoy", lambda: phase_chain(dev, frames))
+    serve, image, pool = run_path("yolo", lambda: phase_yolo(dev))
+    card, bins_image, bins_wall_ms = run_path("bins", lambda: phase_bins(dev))
+    module = phase_module(run_id)
+    for key in ("module_launches", "yolo_launches", "bins_launches"):
         for name, n in module[key].items():
             counts[name] += n
     for name, n in counts.items():
@@ -1125,6 +1536,8 @@ def main() -> int:
     phase_ccl_device(ccl_inputs)
     phase_morph_device(masks, builds)
     rows["nms_fixed"] = phase_yolo_device(serve, image, pool, rate)
+    rows["spacing_select"] = spacing_row
+    phase_bins_device(card, bins_image, bins_wall_ms, spacing_input)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

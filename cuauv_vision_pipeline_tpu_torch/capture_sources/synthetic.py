@@ -4,7 +4,9 @@
 New in the rebuild (no reference equivalent): generates frames with moving
 colored blobs on a textured background — deterministic, asset-free feed for
 tests and benchmarks. The "buoy" scene drops a red disc whose LAB-A response
-exercises the red_buoy chain end to end.
+exercises the red_buoy chain end to end; the "bins" scene translates the
+textured bin plate (the bins module's beige mask and pose template) over the
+same backdrop.
 """
 
 from __future__ import annotations
@@ -58,6 +60,47 @@ def buoy_frame(
     return frame
 
 
+@functools.lru_cache(maxsize=2)
+def bin_texture(h: int = 160, w: int = 320, seed: int = 11) -> np.ndarray:
+    """The canonical bin face: a beige plate (HSV H 10-30, S 20-100 — inside
+    the bins module's inRange window) with high-contrast speckles and grid
+    lines so the keypoint detector finds repeatable keypoints. Doubles as the
+    pose template (``CUAUV_BINS_POSE_TEMPLATE=builtin``) for BASELINE config
+    3's "contour + sift pose estimation" flow (reference utils/sift.py:14-142)."""
+    rng = np.random.default_rng(seed)
+    tex = np.empty((h, w, 3), np.uint8)
+    tex[:] = (150, 190, 215)  # BGR beige (cv2 HSV ~ H 20, S 77, V 215)
+    # darker beige blotches (same hue family; stay inside the mask window)
+    for _ in range(40):
+        by, bx = rng.integers(0, h - 12), rng.integers(0, w - 24)
+        bh, bw = rng.integers(6, 14), rng.integers(10, 26)
+        shade = int(rng.integers(110, 190))
+        tex[by : by + bh, bx : bx + bw] = (
+            int(shade * 0.7),
+            int(shade * 0.88),
+            shade,
+        )
+    # grid lines: strong gradients at known spots
+    tex[:: h // 8, :] = (90, 115, 140)
+    tex[:, :: w // 8] = (90, 115, 140)
+    tex.setflags(write=False)
+    return tex
+
+
+def bins_frame(shape: Tuple[int, int], t: float, seed: int = 7) -> np.ndarray:
+    """Teal backdrop with the textured bin plate translating over time (at
+    template scale, so keypoints match 1:1)."""
+    h, w = shape
+    base = _backdrop(shape, seed)
+    tex = bin_texture()
+    th, tw = tex.shape[:2]
+    y0 = int((h - th) * (0.5 + 0.35 * math.sin(t * 0.5)))
+    x0 = int((w - tw) * (0.5 + 0.35 * math.cos(t * 0.7)))
+    frame = base.copy()
+    frame[y0 : y0 + th, x0 : x0 + tw] = tex
+    return frame
+
+
 class Synthetic(CaptureSource):
     def __init__(
         self,
@@ -69,11 +112,12 @@ class Synthetic(CaptureSource):
         precompute: int = 0,
     ):
         super().__init__()
-        if scene not in ("buoy", "zed"):
+        if scene not in ("buoy", "zed", "bins"):
             raise ValueError(f"unknown scene {scene}")
+        frame_fn = bins_frame if scene == "bins" else buoy_frame
 
         def gen(k: int) -> np.ndarray:
-            return buoy_frame((height, width), k / max(fps, 1))
+            return frame_fn((height, width), k / max(fps, 1))
 
         # precompute>0: render N frames up front and cycle them, so the
         # producer's per-frame cost is pure bus memcpy — the max-rate feed

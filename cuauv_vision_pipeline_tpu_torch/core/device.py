@@ -7,9 +7,22 @@ quietly on the host.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Full float32 matrix products and convolutions inside the block: TF32
+    off for cuBLAS and cuDNN (cuDNN's convolutions default to TF32)."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
 def resolve_device(spec: Optional[Union[str, int, torch.device]] = None) -> torch.device:

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...core.device import resolve_device
+from ...core.device import full_f32, resolve_device
 from .decode import decode, summarize
 from .model import create_model, letterbox_params, preprocess_fused
 from .tracker import ByteTracker
@@ -49,17 +49,6 @@ class _Result:
 
     def summary(self) -> List[Dict]:
         return self._summary
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """Full float32 convolutions and matrix products inside the block."""
-    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
 class YoloModel:
@@ -129,11 +118,11 @@ class YoloModel:
         """[K, H, W, 3] u8 BGR on the device -> the raw per-scale head maps
         (NHWC, float32): letterbox and conv stack, before decode."""
         with torch.inference_mode():
-            with _no_tf32():
+            with full_f32():
                 x = preprocess_fused(images_u8, self.image_size)
             # NHWC memory seen as NCHW: a channels_last tensor, no copy
             x = x.to(self.dtype).permute(0, 3, 1, 2)
-            with contextlib.nullcontext() if self.half_precision else _no_tf32():
+            with contextlib.nullcontext() if self.half_precision else full_f32():
                 outputs = self.model(x)
             return {k: [o.float() for o in v] for k, v in outputs.items()}
 

@@ -12,12 +12,14 @@ from typing import Dict
 from .ccl_kernel import label_cuda, label_cuda_batched
 from .morph_kernel import fused_morph
 from .nms_kernel import nms_fixed_cuda
+from .spacing_kernel import spacing_select
 
 WRAPPERS = {
     "label_cuda": label_cuda,
     "label_cuda_batched": label_cuda_batched,
     "fused_morph": fused_morph,
     "nms_fixed": nms_fixed_cuda,
+    "spacing_select": spacing_select,
 }
 
 

@@ -121,6 +121,19 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     return lib
 
 
+def check_tensor(name: str, t, dtype, shape: Tuple[int, ...], device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's C entry point takes as a bare pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def check(lib: ctypes.CDLL, prefix: str, err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:

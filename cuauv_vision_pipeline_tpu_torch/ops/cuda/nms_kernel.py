@@ -134,17 +134,6 @@ def nms_fixed_plain(
     return (picked[0], valid[0]) if single else (picked, valid)
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...], device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, scores on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def nms_fixed_cuda(
     boxes_xyxy: torch.Tensor,
     scores: torch.Tensor,
@@ -169,11 +158,11 @@ def nms_fixed_cuda(
     if P > _MAX_POOL or max_det < 1:
         raise ValueError(f"need P <= {_MAX_POOL} and max_det >= 1, got P={P}, max_det={max_det}")
     dev = scores.device
-    _check("scores", scores, torch.float32, (B, P), dev)
-    _check("boxes_xyxy", boxes_xyxy, torch.float32, (B, P, 4), dev)
-    _check("classes", classes, torch.int32, (B, P), dev)
+    _build.check_tensor("scores", scores, torch.float32, (B, P), dev)
+    _build.check_tensor("boxes_xyxy", boxes_xyxy, torch.float32, (B, P, 4), dev)
+    _build.check_tensor("classes", classes, torch.int32, (B, P), dev)
     if angles is not None:
-        _check("angles", angles, torch.float32, (B, P), dev)
+        _build.check_tensor("angles", angles, torch.float32, (B, P), dev)
 
     lib = _build.load("nms", _SIGNATURES)
     geom = torch.empty((B, 6, P), dtype=torch.float32, device=dev)

@@ -30,11 +30,15 @@ no result):
              max_det, rotated poles; B=1 and B=8), ProbIoU and AABB, each
              launched twice; picked and valid exact.
 6. spacing — the greedy spacing kernel against its plain version on card
-             tensors (tests/spacing_cases.py: K = 1 to 1024, no candidate, a
-             dense 3-px grid, exact-tie plateaus, repeated points, other
-             min_distances; and the top-512 candidates of four 720p bins
-             scenes and of the pose template), each launched twice, kept
-             sets exact; event-timed and plain ms at the main path's input.
+             tensors (tests/spacing_cases.py: K = 1 to 4096, every K the
+             fixpoint's block shape changes at, no candidate, dense 3-px
+             grids, exact-tie plateaus, repeated points, other
+             min_distances; the top-512 candidates of four 720p bins scenes
+             and of the pose template, and a scene's top-2048 and
+             top-4096), each launched twice, kept sets exact;
+             detect_describe at 2048 keypoints keeps the CPU's keypoints;
+             event-timed and plain ms at the main path's input (K = 512)
+             and at K = 2048 and 4096.
 7. yolo    — the YOLO-OBB serving path (YoloModel: YOLOv8n-obb, 15 classes,
              640, bf16, seeded random init) on 1080p ZED frames: (a) float32
              on the card (TF32 off) against float32 on the CPU: head outputs
@@ -57,7 +61,21 @@ no result):
              inliers within 12 px of the pasted plate; wall ms, fps over five
              2 s windows and the host leg's ms. TF32 must be off again after
              the YOLO phase's control.
-9. module  — the real entry points as subprocesses: the synthetic camera
+9. stereo  — the stereo red_buoy chain (BuoyStereo.stereo_chain: both ZED
+             eyes as one [2, H, W] batch) on two 1080p planes at the disc
+             threshold and the whole frame, card against CPU: masks and
+             cleaned masks exact, found and area exact, centroid within
+             1e-3; one label_cuda_batched and one fused_morph launch per
+             call; no host sync; wall ms and fps.
+10. multicam — config 5's two cameras (zed 1280x720, flir 800x600) through
+             YoloModel.device_decode_multi (one conv stack at batch 2, one
+             NMS launch): float32 head maps against the CPU's per camera,
+             each camera's picks against that camera decoded alone (the
+             trained fixture on scenes it knows, and the seeded
+             YOLOv8n-obb); the bf16 serving model's dispatch, its
+             cross-camera merge on the card against the CPU's; wall ms and
+             fps.
+11. module — the real entry points as subprocesses: the synthetic camera
              (``--scene zed``, the ZED's four planes) and
              ``modules.red_buoy``, both on a direction named for this run
              and with ``CUAUV_SHM_NAMESPACE`` set to this run's own
@@ -73,17 +91,31 @@ no result):
              (one frame, cycled) with ``modules.bins`` and the builtin pose
              template, until ``shm.bins_pose.seq_frames`` advances with a
              visible pose on the plate, with its ``latency_ms``, its post
-             and its ``fused_morph`` and ``spacing_select`` launches; then
-             removes the blocks and groups this run made.
+             and its ``fused_morph`` and ``spacing_select`` launches. Then,
+             each on cameras of its own: ``modules.red_buoy_stereo`` on a
+             zed camera (both eyes' fields, at the default tuners and the
+             disc threshold, ``latency_ms``, its ``label_cuda_batched``
+             launches); ``modules.yolo_multicam`` on a zed 1280x720 camera
+             at 15 fps and a flir 800x600 camera at 10 fps (frames advance,
+             ``latency_ms``, the posts image_forward and image_downward,
+             ``nms_fixed`` launches); ``modules.red_buoy`` on one buoy frame
+             from the synthetic source and then from a directory holding
+             that frame as a .bmp (``capture_sources.image_directory``):
+             the same ``shm.red_buoy_results``; ``modules.yolo`` serving
+             the trained gate checkpoint on the synthetic gate scene
+             (``shm.yolo_gate`` reports shark and saw); ``modules.gate``
+             with ``CUAUV_GATE_LOCALIZE=1``. Then it removes the blocks and
+             groups this run made.
 
 Launch counts are set to 0 just before each path (the chain phase, the
-YOLO phase, the bins phase) and read just after it; with the module
-processes' own logged counts they are the main path's launches, and each
-kernel of a path must have launched in that path's run. Then the CCL
-kernels', the morphology's, the YOLO path's (preamble, conv stack, decode,
-NMS) and the bins path's (per stage) device time (torch.profiler) beside
-their event-timed wall time, a ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, "device": ...}`` line.
+YOLO phase, the bins phase, the stereo phase, the multicam phase) and read
+just after it; with the module processes' own logged counts they are the
+main path's launches, and each kernel of a path must have launched in that
+path's run. Then the CCL kernels', the morphology's, the YOLO path's
+(preamble, conv stack, decode, NMS), the bins path's (per stage), the
+stereo chain's and the two-camera dispatch's device time (torch.profiler)
+beside their event-timed wall time, a ``{"kernels": [...]}`` line and,
+last, the ``{"ok": true, "device": ...}`` line.
 
 ``--morph-variant NAME=SOURCE.cu`` (repeatable) builds another source with
 the C entry point of ``csrc/morph.cu`` (an earlier version, a design
@@ -105,6 +137,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import uuid
@@ -133,7 +166,7 @@ NMS_OPS_PER_IOU = 38
 MORPH_OPS = ("open_close", "open", "close")
 # CUDA launches behind one wrapper call (csrc/ccl.cu: local, border, final)
 CUDA_LAUNCHES_PER_CALL = {"label_cuda": 3, "label_cuda_batched": 3, "fused_morph": 1, "nms_fixed": 1,
-                          "spacing_select": 1}
+                          "spacing_select": 2}
 YOLO_FIXTURE = REPO / "tests" / "fixtures" / "synth_pico_detect.msgpack"
 # the bins path: the ZED's HD720 frames, the scenes' times, card-vs-CPU limits
 BINS_H, BINS_W = 720, 1280
@@ -145,6 +178,8 @@ BINS_PLATE_PX = 12  # pose quad against the pasted plate (the JAX test's limit)
 # integer operations of one distance test (dy, dx, two products, their sum,
 # the compare)
 SPACING_OPS_PER_TEST = 6
+# large K (detect_describe takes any max_keypoints)
+SPACING_LARGE_K = (2048, 4096)
 
 
 def emit(phase: str, **fields) -> None:
@@ -703,7 +738,7 @@ def phase_spacing(dev, rate):
 
     from cuauv_vision_pipeline_tpu_torch.ops.cuda import spacing_select
     from cuauv_vision_pipeline_tpu_torch.ops.cuda.spacing_kernel import spacing_select_plain
-    from cuauv_vision_pipeline_tpu_torch.ops.feature import detect_candidates
+    from cuauv_vision_pipeline_tpu_torch.ops.feature import detect_candidates, detect_describe
 
     inputs = {case: (*(torch.from_numpy(a).to(dev) for a in arrays[:3]), arrays[3])
               for case, arrays in cases().items()}
@@ -721,25 +756,48 @@ def phase_spacing(dev, rate):
             if not torch.equal(got, want):
                 raise AssertionError(f"spacing_select differs from its plain version on {case} (launch {rep})")
         checks.append(case)
-    ys, xs, cand, md = inputs["candidates_bins_720p_t1.0"]
-    kept = spacing_select_plain(ys, xs, cand, md)
-    K = cand.numel()
-    tests = spacing_work(kept, cand)
-    # ys, xs and cand read once, kept written once
-    t_bytes = K * (4 + 4 + 1 + 1) / rate * 1e3
-    t_ops = tests * SPACING_OPS_PER_TEST / _OPS_RATE * 1e3
-    row = dict(
-        source="cuauv_vision_pipeline_tpu_torch/csrc/spacing.cu",
-        replaces="cuauv_vision_pipeline_tpu/ops/feature.py:618",
-        ms=cuda_ms(lambda: spacing_select(ys, xs, cand, md), 100),
-        plain_ms=cuda_ms(lambda: spacing_select_plain(ys, xs, cand, md), 20, warmup=2),
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None, max_abs_err=0,
-    )
-    emit("spacing", checks=len(checks), cases=checks, K=K, candidates=int(cand.sum()),
-         kept=int(kept.sum()), distance_tests=tests, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
-         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
-    return row, (ys, xs, cand, md)
+    # large K: a 720p scene's top-2048 and top-4096
+    # candidates, and detect_describe at 2048 keypoints keeping the CPU's
+    gray = torch.from_numpy(bins_grays()["bins_720p_t1.0"]).to(dev)
+    for K in SPACING_LARGE_K:
+        inputs[f"candidates_bins_720p_t1.0_k{K}"] = (*detect_candidates(gray, max_keypoints=K), 8)
+        ys, xs, cand, md = inputs[f"candidates_bins_720p_t1.0_k{K}"]
+        want = spacing_select_plain(ys, xs, cand, md)
+        for rep in range(2):
+            if not torch.equal(spacing_select(ys, xs, cand, md), want):
+                raise AssertionError(f"spacing_select differs from its plain version on the top-{K} (launch {rep})")
+        checks.append(f"candidates_bins_720p_t1.0_k{K}")
+    kp, _, n = detect_describe(gray, max_keypoints=2048)
+    kp_cpu, _, n_cpu = detect_describe(gray.cpu(), max_keypoints=2048)
+    describe_2048 = {"n_valid": [int(n), int(n_cpu)], "kp_equal": torch.equal(kp.cpu(), kp_cpu)}
+    if not (describe_2048["kp_equal"] and int(n) == int(n_cpu) > 512):
+        raise AssertionError(f"detect_describe(max_keypoints=2048) on the card against the CPU: {describe_2048}")
+
+    def timing(key, reps):
+        """Event-timed and plain ms and the bound at one input."""
+        ys, xs, cand, md = inputs[key]
+        kept = spacing_select_plain(ys, xs, cand, md)
+        K = cand.numel()
+        tests = spacing_work(kept, cand)
+        # ys, xs and cand read once, kept written once
+        t_bytes = K * (4 + 4 + 1 + 1) / rate * 1e3
+        t_ops = tests * SPACING_OPS_PER_TEST / _OPS_RATE * 1e3
+        return dict(
+            K=K, candidates=int(cand.sum()), kept=int(kept.sum()), distance_tests=tests,
+            ms=cuda_ms(lambda: spacing_select(ys, xs, cand, md), reps),
+            plain_ms=cuda_ms(lambda: spacing_select_plain(ys, xs, cand, md), 20 if K <= 512 else 5, warmup=2),
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        )
+
+    main = timing("candidates_bins_720p_t1.0", 100)
+    large = {K: timing(f"candidates_bins_720p_t1.0_k{K}", 50) for K in SPACING_LARGE_K}
+    row = dict(source="cuauv_vision_pipeline_tpu_torch/csrc/spacing.cu",
+               replaces="cuauv_vision_pipeline_tpu/ops/feature.py:618",
+               library_ms=None, max_abs_err=0, **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    emit("spacing", checks=len(checks), cases=checks, detect_describe_2048=describe_2048, **main,
+         large_k={str(K): v for K, v in large.items()})
+    return (row, inputs["candidates_bins_720p_t1.0"],
+            {K: inputs[f"candidates_bins_720p_t1.0_k{K}"] for K in SPACING_LARGE_K})
 
 
 def zed_frames(n: int):
@@ -1251,12 +1309,13 @@ def phase_bins(dev):
     return card, images[1], out["wall_ms_per_frame"]
 
 
-def phase_bins_device(card, img, wall_ms, spacing_input):
+def phase_bins_device(card, img, wall_ms, spacing_input, spacing_large):
     """Where a 720p frame's device time goes on the bins path (profiled
     after the main path), stage by stage on the chain's own intermediates,
     and the whole chain: device ms, CUDA kernels per frame, idle share
     against the unprofiled event-timed wall ms; the spacing kernel's device
-    ms at the main path's input."""
+    ms at the main path's input and at the scene's top-2048 and top-4096
+    (two launches per call: the conflict fill and the fixpoint)."""
     from cuauv_vision_pipeline_tpu_torch.modules.bins import _beige_bounds
     from cuauv_vision_pipeline_tpu_torch.ops.color import bgr_to_gray, bgr_to_hsv
     from cuauv_vision_pipeline_tpu_torch.ops.cuda import fused_morph, spacing_select
@@ -1303,10 +1362,274 @@ def phase_bins_device(card, img, wall_ms, spacing_input):
     whole = stages["chain"]["device_ms"]
     sp_ys, sp_xs, sp_cand, sp_md = spacing_input
     spacing_dev, spacing_by_kernel = device_ms(lambda: spacing_select(sp_ys, sp_xs, sp_cand, sp_md))
+    spacing_large_dev = {str(K): profile_fn(lambda args=args: spacing_select(*args))
+                         for K, args in spacing_large.items()}
     emit("bins_device", wall_ms_per_frame=wall_ms, device_ms_per_frame=whole,
          device_idle_share=1 - whole / wall_ms, kernels_per_frame=stages["chain"]["kernels"],
          split_device_ms=split, stages=stages, spacing_device_ms=spacing_dev,
-         spacing_device_ms_by_kernel=spacing_by_kernel)
+         spacing_device_ms_by_kernel=spacing_by_kernel, spacing_large_k_device=spacing_large_dev)
+
+
+STEREO_TS = (0.4, 1.2)  # the two eyes' frames (buoy scene times)
+STEREO_THRESHOLDS = ((140, 255), (0, 255))
+# config 5's cameras: the ZED's HD720 forward eye and the FLIR
+MULTICAM_HW = ((720, 1280), (600, 800))
+MULTICAM_TS = (0.4, 1.0)
+# a camera's lane of the batch-2 dispatch against that camera decoded alone,
+# both float32 on the card (TF32 off): cuDNN may pick another algorithm at
+# batch 2, moving head maps by float32 rounding; picks must not move
+MULTI_ALONE_ATOL = {"score": 1e-4, "xyxy": 1e-2}
+
+
+def stereo_tuners(tmin: int, tmax: int) -> dict:
+    return {"thresh_min": np.int32(tmin), "thresh_max": np.int32(tmax)}
+
+
+def phase_stereo(dev):
+    """The stereo red_buoy path (BuoyStereo.stereo_chain, both ZED eyes in
+    one dispatch) on two 1080p planes at the disc threshold and the whole
+    frame: card against CPU, masks and cleaned masks exact, found and area
+    exact, centroid within 1e-3 px; one label_cuda_batched and one
+    fused_morph launch per call; no host sync in the chain (torch's sync
+    debug mode, with a one-value read as the control). Then event-timed
+    wall ms per call and fps (frames = 2 per call) over five 2 s windows;
+    the device profile comes after the main path (phase_stereo_device)."""
+    from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
+    from cuauv_vision_pipeline_tpu_torch.modules.red_buoy_stereo import BuoyStereo
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import launch_counts
+
+    eyes = [buoy_frame((H, W), t) for t in STEREO_TS]
+    card_in = [torch.from_numpy(f).to(dev) for f in eyes]
+    host_in = [torch.from_numpy(f) for f in eyes]
+
+    def chain(frames, tmin=140, tmax=255, posts=True):
+        return BuoyStereo.stereo_chain(None, *frames, tuners=stereo_tuners(tmin, tmax), want_posts=posts)
+
+    out, failures = {}, []
+    for tmin, tmax in STEREO_THRESHOLDS:
+        before = launch_counts()
+        got, got_posts = chain(card_in, tmin, tmax)
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+        want, want_posts = chain(host_in, tmin, tmax)
+        row = {"launches": launched,
+               **{f"{key}_equal": torch.equal(got_posts[key].cpu(), want_posts[key]) for key in want_posts},
+               "found": got["found"].cpu().tolist(), "cpu_found": want["found"].tolist(),
+               "area": got["area"].cpu().tolist(), "cpu_area": want["area"].tolist(),
+               "centroid_max_abs_err": float((got["centroid"].cpu() - want["centroid"]).abs().max())}
+        name = f"thresh_{tmin}_{tmax}"
+        failures += [f"{name}: {key} is false" for key in row if key.endswith("_equal") and not row[key]]
+        if row["found"] != row["cpu_found"] or row["area"] != row["cpu_area"]:
+            failures.append(f"{name}: found/area {row['found']}/{row['area']} against {row['cpu_found']}/{row['cpu_area']}")
+        if not row["centroid_max_abs_err"] <= 1e-3:
+            failures.append(f"{name}: centroid off by {row['centroid_max_abs_err']}")
+        if launched != {"label_cuda_batched": 1, "fused_morph": 1}:
+            failures.append(f"{name}: launches per call {launched}")
+        if not all(row["found"]):
+            failures.append(f"{name}: an eye found nothing")
+        out[name] = row
+    syncs = host_syncs(lambda: chain(card_in))
+    out["chain_host_syncs"] = len(syncs)
+    out["control_host_syncs"] = len(host_syncs(lambda: card_in[0].sum().item()))
+    if syncs or not out["control_host_syncs"]:
+        failures.append(f"the chain synchronised {len(syncs)} times: {syncs} (the control: {out['control_host_syncs']})")
+    if failures:
+        emit("stereo_checks", **out)
+        raise AssertionError("stereo path: " + "; ".join(failures))
+    out["wall_ms_per_call"] = cuda_ms(lambda: chain(card_in), 50)
+    rates, calls = [], None
+    for _ in range(FPS_REPEATS):
+        rate, calls = fps_window(lambda k: chain(card_in), 2, FPS_WINDOW_S)
+        rates.append(rate)
+    out["fps_frames"] = {"median": statistics.median(rates), "min": min(rates), "max": max(rates), "windows": rates}
+    out["wrapper_calls_per_frame"] = calls
+    emit("stereo", **out)
+    return card_in, out["wall_ms_per_call"]
+
+
+def phase_stereo_device(card_in, wall_ms):
+    """After the main path: the stereo kernels on the chain's own [2, H, W]
+    masks held exactly against their plain versions, and where a call's
+    device time goes
+    (torch.profiler): the whole chain, label_cuda_batched and fused_morph
+    alone; idle share against the unprofiled wall ms."""
+    from cuauv_vision_pipeline_tpu_torch.engine.chains import red_buoy_fused
+    from cuauv_vision_pipeline_tpu_torch.modules.red_buoy_stereo import BuoyStereo
+    from cuauv_vision_pipeline_tpu_torch.ops.ccl import label
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import label_cuda_batched
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda.morph_kernel import fused_morph, fused_morph_plain
+
+    masks = red_buoy_fused(torch.stack(card_in), 140, 255)[0]
+    exact = {"label_cuda_batched": torch.equal(label_cuda_batched(masks), label(masks)),
+             "fused_morph": torch.equal(fused_morph(masks, "open_close"), fused_morph_plain(masks, "open_close"))}
+    if not all(exact.values()):
+        raise AssertionError(f"stereo masks [2, H, W]: kernel against plain {exact}")
+    stages = {
+        "chain": profile_fn(lambda: BuoyStereo.stereo_chain(None, *card_in, tuners=stereo_tuners(140, 255),
+                                                            want_posts=True)),
+        "label_cuda_batched_b2": profile_fn(lambda: label_cuda_batched(masks)),
+        "fused_morph_b2": profile_fn(lambda: fused_morph(masks, "open_close")),
+    }
+    whole = stages["chain"]["device_ms"]
+    emit("stereo_device", wall_ms_per_call=wall_ms, device_ms_per_call=whole, device_idle_share=1 - whole / wall_ms,
+         kernels_per_call=stages["chain"]["kernels"], exact_against_plain=exact, stages=stages,
+         label_cuda_batched_b2_ms=cuda_ms(lambda: label_cuda_batched(masks), 100),
+         fused_morph_b2_ms=cuda_ms(lambda: fused_morph(masks, "open_close"), 100))
+
+
+def fixture_camera(rng, hw):
+    """A scene the trained detect fixture knows (render_scene at the
+    camera's height), widened with its edge columns to the camera's size."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.synth import render_scene
+
+    h, w = hw
+    scene = render_scene(rng, size=h, max_objects=3)[0]
+    pad = (w - h) // 2
+    return np.pad(scene, ((0, 0), (pad, w - h - pad), (0, 0)), mode="edge")
+
+
+def per_camera(heads, i):
+    """Camera i's slice of batched head maps."""
+    return {k: [m[i:i + 1] for m in v] for k, v in heads.items()}
+
+
+def phase_multicam(dev):
+    """Config 5's two cameras (zed 1280x720 + flir 800x600) through
+    YoloModel.device_decode_multi: one letterbox per camera, one conv stack
+    at batch 2, one decode, one NMS launch. (a) float32 (TF32 off), the
+    trained detect fixture on scenes it knows and the seeded YOLOv8n-obb on
+    the buoy scene: the batch-2 head maps against each camera's CPU head
+    maps within HEADS_ATOL; each camera's lane against that camera decoded
+    alone: for the fixture valid and cls equal, score and boxes within
+    MULTI_ALONE_ATOL, for random init (pool scores within rounding of each
+    other) valid equal. (b) The serving model (bf16): exactly one nms_fixed
+    launch per dispatch, at B = 2; the cross-camera merge of its [2, 32, 6]
+    detections on the card equal to the merge on the CPU (the plain NMS);
+    event-timed ms per dispatch of two cameras, fps over five 2 s windows,
+    and the merge's ms."""
+    from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.predictor import YoloModel
+    from cuauv_vision_pipeline_tpu_torch.modules.yolo_multicam import _camera_dets
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
+    from cuauv_vision_pipeline_tpu_torch.parallel.crosscam import cross_camera_nms
+
+    rng = np.random.default_rng(31)
+    scenes = {"fixture": [fixture_camera(rng, hw) for hw in MULTICAM_HW],
+              "random_init": [buoy_frame(hw, t) for hw, t in zip(MULTICAM_HW, MULTICAM_TS)]}
+    fixture = dict(image_size=128, max_det=8, conf_thresh=0.25)
+    out, failures = {}, []
+    for kind, weight, kw in (("fixture", str(YOLO_FIXTURE), fixture), ("random_init", None, dict(task="obb"))):
+        card = YoloModel(weight, half_precision=False, device=dev, **kw)
+        host = YoloModel(weight, half_precision=False, device="cpu", **kw)
+        cams = [torch.from_numpy(c).to(dev) for c in scenes[kind]]
+        heads = card.head_outputs_multi(cams)
+        err = max(heads_err(per_camera(heads, i), host.head_outputs(torch.from_numpy(c)[None]))
+                  for i, c in enumerate(scenes[kind]))
+        before = nms_fixed_cuda.launches
+        multi = card.device_decode_multi(cams)
+        nms = nms_fixed_cuda.launches - before
+        row = {"heads_max_abs_err": err, "nms_launches_per_dispatch": nms,
+               "valid": multi["valid"].sum(1).tolist()}
+        for i, cam in enumerate(cams):
+            alone = card.device_decode(cam)
+            row[f"cam{i}_valid_equal"] = torch.equal(multi["valid"][i], alone["valid"])
+            row[f"cam{i}_cls_equal"] = torch.equal(multi["cls"][i], alone["cls"])
+            for key in MULTI_ALONE_ATOL:
+                row[f"cam{i}_{key}_max_abs_err"] = float((multi[key][i] - alone[key]).abs().max())
+            checked = ("valid", "cls") if kind == "fixture" else ("valid",)
+            failures += [f"{kind} cam{i}: {k} differs from the camera alone" for k in checked
+                         if not row[f"cam{i}_{k}_equal"]]
+            if kind == "fixture":
+                failures += [f"{kind} cam{i}: {k} off by {row[f'cam{i}_{k}_max_abs_err']}"
+                             for k, limit in MULTI_ALONE_ATOL.items() if not row[f"cam{i}_{k}_max_abs_err"] <= limit]
+        if not err <= HEADS_ATOL[kind]:
+            failures.append(f"{kind}: batch-2 head maps differ from the CPU's past {HEADS_ATOL[kind]}")
+        if nms != 1:
+            failures.append(f"{kind}: {nms} nms_fixed launches per dispatch")
+        if kind == "fixture" and not min(row["valid"]) > 0:
+            failures.append(f"fixture: a camera has no detection {row['valid']}")
+        out[f"f32_{kind}"] = row
+    if failures:
+        emit("multicam_checks", heads_atol=HEADS_ATOL, **out)
+        raise AssertionError("multicam path: " + "; ".join(failures))
+
+    serve = YoloModel(None, task="obb", device=dev)
+    cams = [torch.from_numpy(c).to(dev) for c in scenes["random_init"]]
+    calls: list = []
+    with recording_nms(calls):
+        decoded = serve.device_decode_multi(cams)
+    if len(calls) != 1 or calls[0][0][1].shape[0] != 2:
+        raise AssertionError(f"serving dispatch: {len(calls)} NMS calls, pools {[c[0][1].shape for c in calls]}")
+    pool = calls[0][0]
+    dets = _camera_dets(decoded, MULTICAM_HW, serve.image_size)
+    merged = cross_camera_nms(dets)
+    want = cross_camera_nms(dets.cpu())
+    out["merge"] = {"input": list(dets.shape), "kept": int((want[:, 4] > 0).sum()),
+                    "equal_to_cpu": torch.equal(merged.cpu(), want)}
+    if not out["merge"]["equal_to_cpu"]:
+        raise AssertionError("cross_camera_nms on the card differs from its plain version on the CPU")
+    out["serving"] = {"model": "YOLOv8n-obb, 15 classes, 640, bf16, seeded random init",
+                      "cameras": [list(hw) for hw in MULTICAM_HW],
+                      "valid": decoded["valid"].sum(1).tolist(),
+                      "above_threshold": (pool[1] > 0).sum(1).tolist()}
+    out["wall_ms_per_dispatch"] = cuda_ms(lambda: serve.device_decode_multi(cams), 50)
+    out["merge_ms"] = cuda_ms(lambda: cross_camera_nms(dets), 100)
+    rates, calls = [], None
+    for _ in range(FPS_REPEATS):
+        rate, calls = fps_window(lambda k: serve.device_decode_multi(cams), 2, FPS_WINDOW_S)
+        rates.append(rate)
+    out["fps_frames"] = {"median": statistics.median(rates), "min": min(rates), "max": max(rates), "windows": rates}
+    out["wrapper_calls_per_frame"] = calls
+    emit("multicam", **out)
+    return serve, cams, pool, dets, out["wall_ms_per_dispatch"]
+
+
+def phase_multicam_device(serve, cams, pool, dets, wall_ms, rate):
+    """After the main path: where a two-camera dispatch's device time goes
+    (the letterboxes, + the batch-2 conv stack, the whole dispatch), the NMS
+    kernel at B = 2 on the dispatch's own pool and the cross-camera merge
+    (B = 1, 64 candidates, AABB), each against its plain version, with their
+    event-timed ms and bounds."""
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda.nms_kernel import nms_fixed_plain
+    from cuauv_vision_pipeline_tpu_torch.parallel.crosscam import cross_camera_nms
+
+    flat = dets.reshape(-1, 6)
+    merge_pool = (flat[None, :, :4].contiguous(), flat[None, :, 4].contiguous(), flat[None, :, 5].to(torch.int32),
+                  None, 0.55, 32)
+    nms = {}
+    for name, p in (("b2", pool), ("merge", merge_pool)):
+        boxes, scores, classes, angles, iou, max_det = p
+        want = nms_fixed_plain(boxes, scores, classes, iou, max_det, True, angles)
+        got = nms_fixed_cuda(*p)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"nms_fixed differs from its plain version on the {name} pool")
+        B, P = scores.shape
+        rounds, scanned, ious = nms_work(boxes, scores, classes, angles, iou, max_det)
+        t_bytes = (B * P * (16 + 4 + 4 + (4 if angles is not None else 0)) + B * max_det * 5) / rate * 1e3
+        t_ops = (2 * scanned + NMS_OPS_PER_IOU * ious) / _F32_RATE * 1e3
+        nms[name] = {"B": B, "P": P, "rounds": rounds, "scanned": scanned, "ious": ious,
+                     "ms": cuda_ms(lambda: nms_fixed_cuda(*p), 100),
+                     "plain_ms": cuda_ms(lambda: nms_fixed_plain(boxes, scores, classes, iou, max_det, True, angles), 10),
+                     "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     **{f"device_{k}": v for k, v in profile_fn(lambda: nms_fixed_cuda(*p)).items()}}
+    stages = {
+        "letterboxes": profile_fn(lambda: [serve._letterbox(c[None]) for c in cams]),
+        "letterboxes_and_convs": profile_fn(lambda: serve.head_outputs_multi(cams)),
+        "dispatch": profile_fn(lambda: serve.device_decode_multi(cams)),
+        "merge": profile_fn(lambda: cross_camera_nms(dets)),
+    }
+    whole = stages["dispatch"]["device_ms"]
+    emit("multicam_device", wall_ms_per_dispatch=wall_ms, device_ms_per_dispatch=whole,
+         device_idle_share=1 - whole / wall_ms, kernels_per_dispatch=stages["dispatch"]["kernels"],
+         split_device_ms={"letterboxes": stages["letterboxes"]["device_ms"],
+                          "conv_stack": stages["letterboxes_and_convs"]["device_ms"] - stages["letterboxes"]["device_ms"],
+                          "decode_and_nms": whole - stages["letterboxes_and_convs"]["device_ms"]},
+         stages=stages, nms=nms)
+
+
+GATE_FIXTURE = REPO / "tests" / "fixtures" / "gate_pico_detect.msgpack"
+DISC_AREA = (20000, 27000)  # the 1080p buoy disc's pixels at thresh_min 140
 
 
 def phase_module(run_id: str):
@@ -1315,9 +1638,14 @@ def phase_module(run_id: str):
     # groups (set in main)
     direction = f"smoke_{run_id}"
     bins_direction = f"{direction}_bins"
+    dirs = {name: f"{direction}_{name}" for name in ("buoy", "imgdir", "stereo", "mczed", "mcflir", "gate")}
+    import cv2
+
+    from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
     from cuauv_vision_pipeline_tpu_torch.core import shm
     from cuauv_vision_pipeline_tpu_torch.core.base import ModuleReader
     from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BLOCK_STUB
+    from cuauv_vision_pipeline_tpu_torch.modules.red_buoy_stereo import RESULTS_SCHEMA
 
     logs = REPO / "smoke_logs"
     logs.mkdir(parents=True, exist_ok=True)
@@ -1328,8 +1656,12 @@ def phase_module(run_id: str):
     status.set(frames=0, latency_ms=0.0)
     pose = shm.bins_pose
     pose.set(visible=False, seq_frames=0, latency_ms=0.0)
+    stereo = shm.define_group("red_buoy_stereo_results", RESULTS_SCHEMA)
+    gate = shm.yolo_gate
     module_name = f"BuoyLAB-on-{direction}"
     procs = []
+    stopped = set()  # names of processes stopped on purpose
+    image_dir = Path(tempfile.mkdtemp(prefix="smoke_images_"))
 
     def start(args, name, **extra_env):
         log = open(logs / f"{name}.log", "w")
@@ -1338,106 +1670,216 @@ def phase_module(run_id: str):
         procs.append((p, log, name))
         return p
 
+    def synthetic(direction_, scene, name, *extra):
+        return start(["cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic", direction_,
+                      "--scene", scene, *extra], name)
+
     def wait_for(cond, timeout, what):
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             for p, _, name in procs:
-                if p.poll() is not None:
+                if name not in stopped and p.poll() is not None:
                     raise RuntimeError(f"{name} exited ({p.returncode}) while waiting for {what}")
             if cond():
                 return
             time.sleep(0.05)
         raise TimeoutError(f"timed out waiting for {what}")
 
+    def stop(modules, sources):
+        """SIGINT the named modules and sources; each module must exit 0
+        having logged its kernel launch counts, which are returned."""
+        stopped.update((*modules, *sources))
+        for p, _, name in procs:
+            if name in (*modules, *sources) and p.poll() is None:
+                p.send_signal(signal.SIGINT)
+        launches = {}
+        for p, _, name in procs:
+            if name in sources:
+                p.wait(timeout=20)
+            elif name in modules:
+                p.wait(timeout=60)
+                assert p.returncode == 0, f"{name} exited with {p.returncode}"
+                found = re.findall(r"kernel launches: (\{.*\})", (logs / f"{name}.log").read_text())
+                assert found, f"{name} logged no kernel launch counts"
+                launches[name] = json.loads(found[-1])
+        return launches
+
+    def samples(counter, read, seconds=4.0, least=5, what="results"):
+        """``read()`` at each advance of ``counter()`` for ``seconds``."""
+        seen, got = counter(), []
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            if counter() != seen:
+                seen = counter()
+                got.append(read())
+            time.sleep(0.01)
+        assert len(got) >= least, f"{what} advanced {len(got)} times in {seconds} s"
+        return seen, got
+
+    def spread(values):
+        return {"median": statistics.median(values), "min": min(values), "max": max(values), "samples": len(values)}
+
+    def posts_of(module):
+        return sorted(p.name.split("%")[-1].split("#")[0] for p in Path(BLOCK_STUB).parent.glob(
+            Path(BLOCK_STUB).name + f"module_{module}_post%*"))
+
+    def at_disc_threshold(name, area, ready, timeout=30):
+        """Set thresh_min=140 on module ``name`` through the ModuleReader
+        and wait until ``area()`` is the disc's and ``ready()`` holds."""
+        wait_for(lambda: name in ModuleReader.get_active_modules(), 30, f"{name}'s tuner blocks")
+        reader = ModuleReader(name)
+        reader.run_forever(fps=30)
+        try:
+            reader.update_tuner_value("thresh_min", 140)
+            wait_for(lambda: DISC_AREA[0] < area() < DISC_AREA[1] and ready(), timeout, f"{name}: the disc's area")
+            time.sleep(1.0)  # a few more frames at the new threshold
+        finally:
+            reader.unblock()
+
+    def buoy_reading():
+        g = results.get()
+        return {k: getattr(g, k) for k in ("visible", "center_x", "center_y", "area")}
+
     out = {}
-    reader = None
     try:
-        # the zed scene sends the ZED's planes (forward, forward2, depth,
-        # normal) under any direction; the module's chain binds "forward"
-        start(["cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic", direction,
-               "--scene", "zed", "--fps", "30"], "source")
-        module = start(["cuauv_vision_pipeline_tpu_torch.modules.red_buoy", direction], "module")
-        yolo = start(["cuauv_vision_pipeline_tpu_torch.modules.yolo", direction], "yolo")
-        # the bins camera at the ZED's HD720 size: one frame (t = 0), cycled,
-        # so the plate stays where the pose check expects it
-        start(["cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic", bins_direction,
-               "--scene", "bins", "--width", str(BINS_W), "--height", str(BINS_H), "--fps", "30",
-               "--precompute", "1"], "bins_source")
-        bins = start(["cuauv_vision_pipeline_tpu_torch.modules.bins", bins_direction], "bins",
-                     CUAUV_BINS_POSE_TEMPLATE="builtin")
+        # wave 1: the zed scene sends the ZED's planes (forward, forward2,
+        # depth, normal) under any direction; red_buoy's chain binds
+        # "forward", YOLO's the first plane; the bins camera at the ZED's
+        # HD720 size, one frame (t = 0) cycled, so the plate stays where the
+        # pose check expects it
+        synthetic(direction, "zed", "source", "--fps", "30")
+        start(["cuauv_vision_pipeline_tpu_torch.modules.red_buoy", direction], "module")
+        start(["cuauv_vision_pipeline_tpu_torch.modules.yolo", direction], "yolo")
+        synthetic(bins_direction, "bins", "bins_source", "--width", str(BINS_W), "--height", str(BINS_H),
+                  "--fps", "30", "--precompute", "1")
+        start(["cuauv_vision_pipeline_tpu_torch.modules.bins", bins_direction], "bins",
+              CUAUV_BINS_POSE_TEMPLATE="builtin")
         wait_for(lambda: results.visible.get(), 180, "the first detection")
         wait_for(lambda: results.area.get() == H * W, 10, "a whole-frame area")
         out["area_default_tuners"] = results.area.get()
-        wait_for(lambda: module_name in ModuleReader.get_active_modules(), 30, "tuner blocks")
-        reader = ModuleReader(module_name)
-        reader.run_forever(fps=30)
-        reader.update_tuner_value("thresh_min", 140)
-        wait_for(lambda: 20000 < results.area.get() < 27000, 30, "the disc's area")
-        time.sleep(1.0)  # a few more frames at the new threshold
+        at_disc_threshold(module_name, results.area.get, lambda: True)
         out["area_thresh_min_140"] = results.area.get()
-        assert 20000 < out["area_thresh_min_140"] < 27000, out
+        assert DISC_AREA[0] < out["area_thresh_min_140"] < DISC_AREA[1], out
         out["latency_ms"] = results.latency_ms.get()
         out["latency_newest_ms"] = results.latency_newest_ms.get()
-        reader.unblock()
-        reader = None
         # the YOLO module on the same camera: frames advance, each with a
         # camera-to-result latency; its seven posts (the frame and one per
         # handler) appear
         wait_for(lambda: status.frames.get() >= 3, 180, "YOLO results")
-        seen, latencies = status.frames.get(), []
-        deadline = time.monotonic() + 4.0
-        while time.monotonic() < deadline:
-            if status.frames.get() != seen:
-                seen = status.frames.get()
-                latencies.append(status.latency_ms.get())
-            time.sleep(0.01)
-        assert len(latencies) >= 5, f"yolo_status.frames advanced {len(latencies)} times in 4 s"
-        out["yolo_frames"] = seen
-        out["yolo_latency_ms"] = {"median": statistics.median(latencies), "min": min(latencies),
-                                  "max": max(latencies), "samples": len(latencies)}
-        posts = sorted(p.name.split("%")[-1] for p in
-                       Path(BLOCK_STUB).parent.glob(Path(BLOCK_STUB).name + f"module_Yolo-on-{direction}_post%*"))
-        out["yolo_posts"] = posts
-        assert len(posts) >= 7, posts
+        out["yolo_frames"], latencies = samples(status.frames.get, status.latency_ms.get, what="yolo_status.frames")
+        out["yolo_latency_ms"] = spread(latencies)
+        out["yolo_posts"] = posts_of(f"Yolo-on-{direction}")
+        assert len(out["yolo_posts"]) >= 7, out["yolo_posts"]
         # the bins module: pose results advance, visible on the plate, each
         # with a camera-to-result latency; its post appears
         wait_for(lambda: pose.seq_frames.get() >= 3, 180, "bins pose results")
-        seen, latencies, readings = pose.seq_frames.get(), [], []
-        deadline = time.monotonic() + 4.0
-        while time.monotonic() < deadline:
-            if pose.seq_frames.get() != seen:
-                seen = pose.seq_frames.get()
-                g = pose.get()
-                latencies.append(g.latency_ms)
-                readings.append((g.visible, g.inliers, plate_error(g, 0.0)))
-            time.sleep(0.01)
-        assert len(latencies) >= 5, f"bins_pose.seq_frames advanced {len(latencies)} times in 4 s"
-        out["bins_frames"] = seen
-        out["bins_latency_ms"] = {"median": statistics.median(latencies), "min": min(latencies),
-                                  "max": max(latencies), "samples": len(latencies)}
-        out["bins_pose"] = {"visible": sum(v for v, _, _ in readings), "samples": len(readings),
-                            "inliers_min": min(i for _, i, _ in readings),
-                            "plate_err_px_max": max(e for _, _, e in readings)}
-        assert all(v and i >= 8 and e < BINS_PLATE_PX for v, i, e in readings), out["bins_pose"]
-        bins_posts = sorted(p.name.split("%")[-1] for p in Path(BLOCK_STUB).parent.glob(
-            Path(BLOCK_STUB).name + f"module_BinDetector-on-{bins_direction}_post%*"))
-        out["bins_posts"] = bins_posts
-        assert [p.split("#")[0] for p in bins_posts] == ["bins"], bins_posts  # name#colorspace
-        for name, proc in (("module", module), ("yolo", yolo), ("bins", bins)):
-            proc.send_signal(signal.SIGINT)
-            proc.wait(timeout=60)
-            assert proc.returncode == 0, f"{name} exited with {proc.returncode}"
-            found = re.findall(r"kernel launches: (\{.*\})", (logs / f"{name}.log").read_text())
-            assert found, f"{name} logged no kernel launch counts"
-            out[f"{name}_launches"] = json.loads(found[-1])
+        out["bins_frames"], readings = samples(
+            pose.seq_frames.get, lambda: (lambda g: (g.latency_ms, g.visible, g.inliers, plate_error(g, 0.0)))(
+                pose.get()), what="bins_pose.seq_frames")
+        out["bins_latency_ms"] = spread([r[0] for r in readings])
+        out["bins_pose"] = {"visible": sum(r[1] for r in readings), "samples": len(readings),
+                            "inliers_min": min(r[2] for r in readings),
+                            "plate_err_px_max": max(r[3] for r in readings)}
+        assert all(v and i >= 8 and e < BINS_PLATE_PX for _, v, i, e in readings), out["bins_pose"]
+        out["bins_posts"] = posts_of(f"BinDetector-on-{bins_direction}")
+        assert out["bins_posts"] == ["bins"], out["bins_posts"]
+        launches = stop(("module", "yolo", "bins"), ("source", "bins_source"))
+        out.update({f"{name}_launches": launches[name] for name in ("module", "yolo", "bins")})
         assert out["module_launches"]["label_cuda"] > 0, out
         assert out["module_launches"]["fused_morph"] > 0, out
         assert out["yolo_launches"]["nms_fixed"] > 0, out
         assert out["bins_launches"]["fused_morph"] > 0, out
         assert out["bins_launches"]["spacing_select"] > 0, out
+
+        # wave 2: the stereo module on a zed camera of its own; the
+        # multi-camera YOLO on zed 1280x720 at 15 fps + flir 800x600 at 10
+        # fps (config 5's cameras); red_buoy on a buoy camera of one frame
+        # (t = 0, cycled), the reference for the image directory below
+        stereo.set(visible_left=False, visible_right=False, area_left=0.0, area_right=0.0)
+        status.set(frames=0, latency_ms=0.0)
+        results.set(visible=False, area=0.0)
+        synthetic(dirs["stereo"], "zed", "stereo_source", "--fps", "30")
+        start(["cuauv_vision_pipeline_tpu_torch.modules.red_buoy_stereo", dirs["stereo"]], "stereo")
+        synthetic(dirs["mczed"], "zed", "mczed_source", "--width", "1280", "--height", "720", "--fps", "15")
+        synthetic(dirs["mcflir"], "buoy", "mcflir_source", "--width", "800", "--height", "600", "--fps", "10")
+        start(["cuauv_vision_pipeline_tpu_torch.modules.yolo_multicam", dirs["mczed"], dirs["mcflir"]], "multicam")
+        synthetic(dirs["buoy"], "buoy", "buoy_source", "--fps", "30", "--precompute", "1")
+        start(["cuauv_vision_pipeline_tpu_torch.modules.red_buoy", f"{dirs['buoy']}[forward]"], "buoy")
+        wait_for(lambda: stereo.visible_left.get() and stereo.visible_right.get(), 180, "stereo detections")
+        wait_for(lambda: stereo.area_left.get() == stereo.area_right.get() == H * W, 10, "whole-frame stereo areas")
+        at_disc_threshold(f"BuoyStereo-on-{dirs['stereo']}", stereo.area_left.get,
+                          lambda: stereo.area_right.get() == stereo.area_left.get())
+        g = stereo.get()
+        out["stereo_results"] = {k: getattr(g, k) for k in RESULTS_SCHEMA}
+        # the zed scene sends one frame to both eyes: both sides agree
+        assert g.visible_left and g.visible_right and g.area_left == g.area_right, out["stereo_results"]
+        assert (g.center_x_left, g.center_y_left) == (g.center_x_right, g.center_y_right), out["stereo_results"]
+        _, latencies = samples(lambda: stereo.seq, stereo.latency_ms.get, what="red_buoy_stereo_results")
+        out["stereo_latency_ms"] = spread(latencies)
+        out["stereo_posts"] = posts_of(f"BuoyStereo-on-{dirs['stereo']}")
+        wait_for(lambda: results.visible.get(), 120, "the buoy camera's detection")
+        at_disc_threshold(f"BuoyLAB-on-{dirs['buoy']}", results.area.get, lambda: True)
+        out["buoy_synthetic_reading"] = buoy_reading()
+        wait_for(lambda: status.frames.get() >= 3, 180, "multi-camera YOLO results")
+        out["multicam_frames"], latencies = samples(status.frames.get, status.latency_ms.get,
+                                                    what="multicam yolo_status.frames")
+        out["multicam_latency_ms"] = spread(latencies)
+        out["multicam_posts"] = posts_of(f"YoloMulticam-on-{dirs['mczed']}-{dirs['mcflir']}")
+        assert {"image_forward", "image_downward"} <= set(out["multicam_posts"]), out["multicam_posts"]
+        launches = stop(("stereo", "multicam", "buoy"),
+                        ("stereo_source", "mczed_source", "mcflir_source", "buoy_source"))
+        out.update({f"{name}_launches": launches[name] for name in ("stereo", "multicam", "buoy")})
+        assert out["stereo_launches"]["label_cuda_batched"] > 0, out["stereo_launches"]
+        assert out["stereo_launches"]["fused_morph"] > 0, out["stereo_launches"]
+        assert out["multicam_launches"]["nms_fixed"] > 0, out["multicam_launches"]
+
+        # wave 3: the same buoy frame as a .bmp in a directory (config 1's
+        # image_directory source) -> red_buoy; the gate scene -> the YOLO
+        # module serving the trained gate checkpoint -> GateOBB ->
+        # shm.yolo_gate
+        if not cv2.imwrite(str(image_dir / "frame_0000.bmp"), buoy_frame((H, W), 0.0)):
+            raise RuntimeError("cv2.imwrite failed for the image directory's frame")
+        results.set(visible=False, area=0.0)
+        status.set(frames=0, latency_ms=0.0)
+        gate.set(shark_visible=0, saw_visible=0)
+        start(["cuauv_vision_pipeline_tpu_torch.capture_sources.image_directory", str(image_dir), dirs["imgdir"],
+               "--fps", "30"], "imgdir_source")
+        start(["cuauv_vision_pipeline_tpu_torch.modules.red_buoy", f"{dirs['imgdir']}[forward]"], "imgdir")
+        synthetic(dirs["gate"], "gate", "gate_source", "--width", "1280", "--height", "720", "--fps", "30")
+        start(["cuauv_vision_pipeline_tpu_torch.modules.yolo", dirs["gate"]], "gate_yolo",
+              CUAUV_YOLO_WEIGHT=str(GATE_FIXTURE))
+        wait_for(lambda: results.visible.get(), 120, "the image directory's detection")
+        at_disc_threshold(f"BuoyLAB-on-{dirs['imgdir']}", results.area.get, lambda: True)
+        out["buoy_image_directory_reading"] = buoy_reading()
+        # the same frame through either source: the same detection
+        assert out["buoy_image_directory_reading"] == out["buoy_synthetic_reading"], out
+        wait_for(lambda: gate.shark_visible.get() and gate.saw_visible.get(), 180, "shark and saw in shm.yolo_gate")
+        out["gate_frames"], readings = samples(
+            status.frames.get, lambda: (status.latency_ms.get(), gate.get()), what="gate yolo_status.frames")
+        out["gate_latency_ms"] = spread([lat for lat, _ in readings])
+        out["gate_yolo_gate"] = {
+            "shark_visible": sum(bool(g.shark_visible) for _, g in readings),
+            "saw_visible": sum(bool(g.saw_visible) for _, g in readings), "samples": len(readings),
+            "shark_confidence_median": statistics.median(g.shark_confidence for _, g in readings),
+            "saw_confidence_median": statistics.median(g.saw_confidence for _, g in readings)}
+        assert out["gate_yolo_gate"]["shark_visible"] and out["gate_yolo_gate"]["saw_visible"], out["gate_yolo_gate"]
+        launches = stop(("imgdir", "gate_yolo"), ("imgdir_source",))
+        out.update({f"{name}_launches": launches[name] for name in ("imgdir", "gate_yolo")})
+        assert out["imgdir_launches"]["label_cuda"] > 0 and out["gate_yolo_launches"]["nms_fixed"] > 0, out
+
+        # wave 4: the gate module in localize mode on the same gate camera
+        # (host only: stand-in shark and saw OBBs through GateOBB)
+        gate.set(shark_visible=0, saw_visible=0, shark_area=0.0, saw_area=0.0)
+        start(["cuauv_vision_pipeline_tpu_torch.modules.gate", dirs["gate"]], "gate_module", CUAUV_GATE_LOCALIZE="1")
+        wait_for(lambda: gate.shark_visible.get() and gate.saw_visible.get() and gate.shark_area.get() > 0, 120,
+                 "the gate module's shm.yolo_gate")
+        g = gate.get()
+        out["gate_module_yolo_gate"] = {k: getattr(g, k) for k in ("shark_visible", "shark_center_x", "shark_center_y",
+                                                                   "shark_area", "saw_visible", "saw_area")}
+        out["gate_module_posts"] = posts_of(f"GateDetector-on-{dirs['gate']}")
+        assert "gate handler" in out["gate_module_posts"], out["gate_module_posts"]
+        out["gate_module_launches"] = stop(("gate_module",), ("gate_source",))["gate_module"]
     finally:
-        if reader is not None:
-            reader.unblock()
         for p, log, _ in procs:
             if p.poll() is None:
                 p.send_signal(signal.SIGINT)
@@ -1447,6 +1889,7 @@ def phase_module(run_id: str):
                     p.kill()
                     p.wait()
             log.close()
+        shutil.rmtree(image_dir, ignore_errors=True)
         # what a process left behind, and the groups: all named for this run
         left = [*Path(BLOCK_STUB).parent.glob(Path(BLOCK_STUB).name + f"*{direction}*"),
                 *Path(shm.group_path("*")).parent.glob(Path(shm.group_path("*")).name)]
@@ -1506,12 +1949,13 @@ def main() -> int:
     rows, ccl_inputs, masks = phase_kernels(dev, frames, rate)
 
     phase_nms(dev)
-    spacing_row, spacing_input = phase_spacing(dev, rate)
+    spacing_row, spacing_input, spacing_large = phase_spacing(dev, rate)
 
     # the main path, path by path: the counts set to 0 just before each path
     # and read just after it; every kernel of a path must have launched
     path_kernels = {"red_buoy": ("label_cuda", "label_cuda_batched", "fused_morph"),
-                    "yolo": ("nms_fixed",), "bins": ("fused_morph", "spacing_select")}
+                    "yolo": ("nms_fixed",), "bins": ("fused_morph", "spacing_select"),
+                    "stereo": ("label_cuda_batched", "fused_morph"), "multicam": ("nms_fixed",)}
     counts = dict.fromkeys(launch_counts(), 0)
 
     def run_path(path, drive):
@@ -1527,17 +1971,22 @@ def main() -> int:
     run_path("red_buoy", lambda: phase_chain(dev, frames))
     serve, image, pool = run_path("yolo", lambda: phase_yolo(dev))
     card, bins_image, bins_wall_ms = run_path("bins", lambda: phase_bins(dev))
+    stereo_in, stereo_wall_ms = run_path("stereo", lambda: phase_stereo(dev))
+    multicam = run_path("multicam", lambda: phase_multicam(dev))
     module = phase_module(run_id)
-    for key in ("module_launches", "yolo_launches", "bins_launches"):
-        for name, n in module[key].items():
-            counts[name] += n
+    for key, launched in module.items():
+        if key.endswith("_launches"):
+            for name, n in launched.items():
+                counts[name] += n
     for name, n in counts.items():
         assert n > 0, f"{name} was not launched on the main path"
     phase_ccl_device(ccl_inputs)
     phase_morph_device(masks, builds)
     rows["nms_fixed"] = phase_yolo_device(serve, image, pool, rate)
     rows["spacing_select"] = spacing_row
-    phase_bins_device(card, bins_image, bins_wall_ms, spacing_input)
+    phase_bins_device(card, bins_image, bins_wall_ms, spacing_input, spacing_large)
+    phase_stereo_device(stereo_in, stereo_wall_ms)
+    phase_multicam_device(*multicam, rate)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

@@ -6,7 +6,8 @@ colored blobs on a textured background — deterministic, asset-free feed for
 tests and benchmarks. The "buoy" scene drops a red disc whose LAB-A response
 exercises the red_buoy chain end to end; the "bins" scene translates the
 textured bin plate (the bins module's beige mask and pose template) over the
-same backdrop.
+same backdrop; the "gate" scene orbits a shark and a saw, the gate task's
+two classes, drawn as the gate detector's training scenes draw them.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Tuple
 import numpy as np
 
 from ..core.capture_source import CaptureSource, FpsLimiter
+from ..models.yolo.synth import draw_gate_object
 
 
 @functools.lru_cache(maxsize=4)
@@ -101,6 +103,22 @@ def bins_frame(shape: Tuple[int, int], t: float, seed: int = 7) -> np.ndarray:
     return frame
 
 
+def gate_frame(shape: Tuple[int, int], t: float, seed: int = 7) -> np.ndarray:
+    """Teal backdrop with a shark and a saw (the gate task's two classes)
+    orbiting on opposite phases -- drawn by the SAME primitive the gate
+    training scenes use (models/yolo/synth.draw_gate_object), so the
+    in-repo gate checkpoint detects them without domain gap. Feeds
+    BASELINE config 2's localization loop."""
+    h, w = shape
+    frame = _backdrop(shape, seed).copy()
+    for cls_id, phase in ((0, 0.0), (1, math.pi)):
+        cy = h / 2 + 0.28 * h * math.sin(t * 0.6 + phase)
+        cx = w / 2 + 0.28 * w * math.cos(t * 0.8 + phase)
+        r = 0.11 * min(h, w)
+        draw_gate_object(frame, cls_id, cx, cy, r)
+    return frame
+
+
 class Synthetic(CaptureSource):
     def __init__(
         self,
@@ -112,9 +130,9 @@ class Synthetic(CaptureSource):
         precompute: int = 0,
     ):
         super().__init__()
-        if scene not in ("buoy", "zed", "bins"):
+        if scene not in ("buoy", "zed", "bins", "gate"):
             raise ValueError(f"unknown scene {scene}")
-        frame_fn = bins_frame if scene == "bins" else buoy_frame
+        frame_fn = {"bins": bins_frame, "gate": gate_frame}.get(scene, buoy_frame)
 
         def gen(k: int) -> np.ndarray:
             return frame_fn((height, width), k / max(fps, 1))

@@ -114,25 +114,42 @@ class YoloModel:
         self.model.fuse_(self.dtype)
         return self
 
-    def head_outputs(self, images_u8: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
-        """[K, H, W, 3] u8 BGR on the device -> the raw per-scale head maps
-        (NHWC, float32): letterbox and conv stack, before decode."""
+    def _letterbox(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """[K, H, W, 3] u8 BGR on the device -> [K, S, S, 3] float32."""
+        with torch.inference_mode(), full_f32():
+            return preprocess_fused(images_u8, self.image_size)
+
+    def _heads(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+        """The conv stack on letterboxed [K, S, S, 3] float32 -> the raw
+        per-scale head maps (NHWC, float32)."""
         with torch.inference_mode():
-            with full_f32():
-                x = preprocess_fused(images_u8, self.image_size)
             # NHWC memory seen as NCHW: a channels_last tensor, no copy
             x = x.to(self.dtype).permute(0, 3, 1, 2)
             with contextlib.nullcontext() if self.half_precision else full_f32():
                 outputs = self.model(x)
             return {k: [o.float() for o in v] for k, v in outputs.items()}
 
-    def _forward(self, images_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """[K, H, W, 3] u8 BGR on the device -> decode dict, leaves [K, ...]."""
-        outputs = self.head_outputs(images_u8)
+    def _decode(self, outputs: Dict[str, List[torch.Tensor]]) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
             return decode(outputs, self.image_size, reg_max=self.model.reg_max,
                           conf_thresh=self.conf_thresh, max_det=self.max_det,
                           nms_pool=self.nms_pool)
+
+    def head_outputs(self, images_u8: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+        """[K, H, W, 3] u8 BGR on the device -> the raw per-scale head maps
+        (NHWC, float32): letterbox and conv stack, before decode."""
+        return self._heads(self._letterbox(images_u8))
+
+    def head_outputs_multi(self, images) -> Dict[str, List[torch.Tensor]]:
+        """N cameras' ``[H_i, W_i, 3]`` u8 BGR frames (numpy or tensors, any
+        sizes) -> head maps with a leading camera axis: each frame
+        letterboxed on its own, then ONE conv stack at batch N."""
+        xs = torch.cat([self._letterbox(self._to_device(im)[None]) for im in images])
+        return self._heads(xs)
+
+    def _forward(self, images_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """[K, H, W, 3] u8 BGR on the device -> decode dict, leaves [K, ...]."""
+        return self._decode(self.head_outputs(images_u8))
 
     def _to_device(self, image) -> torch.Tensor:
         if isinstance(image, np.ndarray):
@@ -150,6 +167,15 @@ class YoloModel:
         (the shape a ``@device_fn(batch=K)`` dispatch carries) as ONE K-batch
         conv stack; every leaf of the decode dict gains a leading lane axis."""
         return self._forward(self._to_device(images))
+
+    def device_decode_multi(self, images) -> Dict[str, torch.Tensor]:
+        """Multi-camera batched forward: letterbox each camera's frame (sizes
+        differ per camera), stack to ``[N, S, S, 3]``, run ONE conv stack at
+        batch N and decode once, so the NMS kernel runs all N cameras in one
+        launch. Every leaf of the decode dict has the camera axis in front;
+        pass camera i's slice to :meth:`summarize_decoded` with that camera's
+        own (h, w)."""
+        return self._decode(self.head_outputs_multi(images))
 
     def summarize_decoded(self, decoded_np: Dict, orig_hw: Tuple[int, int]) -> List[Dict]:
         """Host half: undo the letterbox (orig = (model_coord - pad) /

@@ -5,9 +5,10 @@ Each case is ``(ys int32 [K], xs int32 [K], cand bool [K], min_distance)``,
 strongest candidate first. The bins scenes' and the template's own
 candidates come from ``ops.feature.detect_candidates`` where a check runs
 it; these are the synthetic ones: every K the kernel's block shapes change
-at, no candidate at all, a dense 3-px grid, exact-tie plateaus (blocks of
-adjacent pixels of one response, ordered lowest index first) and repeated
-points."""
+at (up to 1024 a fixpoint thread per candidate, past it threads owning
+several, so K = 1025, 2048 and 4096), no candidate at all, dense 3-px
+grids, exact-tie plateaus (blocks of adjacent pixels of one response,
+ordered lowest index first) and repeated points."""
 
 from __future__ import annotations
 
@@ -59,4 +60,16 @@ def cases() -> Dict[str, Case]:
     out["plateaus_k512"] = (ys, xs, np.ones(512, bool), 8)
     ys, xs, cand, _ = _points(rng, 128, 60)
     out["repeated_k512"] = (np.tile(ys, 4), np.tile(xs, 4), np.tile(cand, 4), 8)
+    # past 1024 candidates (a generator of their own, so the cases
+    # above keep their points)
+    rng = np.random.default_rng(14)
+    for K in (1025, 2048, 4096):
+        out[f"random_k{K}"] = _points(rng, K, int(5 * np.sqrt(K)))
+    gy, gx = np.meshgrid(np.arange(64) * 3, np.arange(64) * 3, indexing="ij")
+    out["grid3_k4096"] = (gy.reshape(-1).astype(np.int32), gx.reshape(-1).astype(np.int32),
+                          np.ones(4096, bool), 8)
+    corners = rng.integers(0, 400, (128, 2))
+    ys = (corners[:, :1] + dy.reshape(1, -1)).reshape(-1).astype(np.int32)
+    xs = (corners[:, 1:] + dx.reshape(1, -1)).reshape(-1).astype(np.int32)
+    out["plateaus_k2048"] = (ys, xs, np.ones(2048, bool), 8)
     return out

@@ -1,11 +1,12 @@
 """The CUDA spacing kernel (``spacing_select``, ``csrc/spacing.cu``) against
 its plain version (``spacing_select_plain``, torch ops on the same card
-tensors): every K the block shape changes at (1 to 1024), no candidate, a
-dense 3-px grid, exact-tie plateaus, repeated points, other min_distances,
-and the bins scenes' and the template's own candidates; each launched
-twice, kept sets exact. Inputs the kernel does not take raise; each launch
-counts once; ``detect_describe`` on the card launches it once per call and
-keeps the CPU's keypoints.
+tensors): every K the block shape changes at (1 to 1024), threads owning
+several candidates (K = 1025, 2048, 4096), no candidate, dense 3-px
+grids, exact-tie plateaus, repeated points, other min_distances, and the
+bins scenes' and the template's own candidates at K = 512, 2048 and 4096;
+each launched twice, kept sets exact. Inputs the kernel does not take
+raise; each launch counts once; ``detect_describe`` on the card launches it
+once per call and keeps the CPU's keypoints, at K = 512 and 2048.
 
 Needs a CUDA card and skips without one. It imports neither JAX nor the JAX
 package, so it runs on a machine without them:
@@ -62,6 +63,13 @@ def test_kernel_equals_plain_on_scene_candidates(dev, name):
     check(ys, xs, cand, 8)
 
 
+@pytest.mark.parametrize("K", [2048, 4096])
+def test_kernel_equals_plain_on_a_scenes_top_k(dev, K):
+    ys, xs, cand = detect_candidates(torch.from_numpy(GRAYS["bins_720p_t1.0"]()).to(dev), max_keypoints=K)
+    assert cand.shape == (K,) and int(cand.sum()) > 0
+    check(ys, xs, cand, 8)
+
+
 def test_launch_count(dev):
     ys, xs, cand, md = (torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
                         for a in CASES["random_k512"])
@@ -81,8 +89,8 @@ def test_rejects_what_the_kernel_does_not_take(dev):
         spacing_select(ys, xs, cand.to(torch.uint8), md)
     with pytest.raises(ValueError, match="contiguous"):
         spacing_select(ys[::2], xs[::2].contiguous(), cand[::2].contiguous(), md)
-    with pytest.raises(ValueError, match="1 <= K"):
-        spacing_select(torch.cat([ys, ys]), torch.cat([xs, xs]), torch.cat([cand, cand]), md)
+    # K = 2048 is taken: exact as any K
+    check(torch.cat([ys, ys]), torch.cat([xs, xs]), torch.cat([cand, cand]), md)
     with pytest.raises(ValueError, match="1 <= K"):
         spacing_select(ys[:0], xs[:0], cand[:0], md)
     with pytest.raises(ValueError, match="is on"):
@@ -91,14 +99,24 @@ def test_rejects_what_the_kernel_does_not_take(dev):
         spacing_select(ys, xs, cand, -1)
 
 
-def test_detect_describe_launches_once_and_keeps_the_cpus_keypoints(dev):
+def check_describe(dev, K):
+    """detect_describe on the card launches the kernel once and keeps the
+    CPU's keypoints."""
     gray = torch.from_numpy(GRAYS["bins_720p_t1.0"]())
     before = spacing_select.launches
-    kp, des, n = detect_describe(gray.to(dev))
+    kp, des, n = detect_describe(gray.to(dev), max_keypoints=K)
     assert spacing_select.launches == before + 1
-    kp_cpu, des_cpu, n_cpu = detect_describe(gray)
+    kp_cpu, des_cpu, n_cpu = detect_describe(gray, max_keypoints=K)
     assert int(n) == int(n_cpu) > 0
     assert torch.equal(kp.cpu(), kp_cpu)
     # rows whose dominant orientation flips on an atan2 ulp may differ more
     close = ((des.cpu() - des_cpu).abs().max(dim=1).values <= 1e-5).float().mean()
     assert close >= 0.95
+
+
+def test_detect_describe_launches_once_and_keeps_the_cpus_keypoints(dev):
+    check_describe(dev, 512)
+
+
+def test_detect_describe_past_1024_keypoints_keeps_the_cpus_keypoints(dev):
+    check_describe(dev, 2048)

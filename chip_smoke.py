@@ -75,7 +75,16 @@ no result):
              YOLOv8n-obb); the bf16 serving model's dispatch, its
              cross-camera merge on the card against the CPU's; wall ms and
              fps.
-11. module — the real entry points as subprocesses: the synthetic camera
+11. correction — BASELINE config 4's device work, which runs no hand
+             kernel (none may launch): ``ops/balance.balance`` with the
+             default config on four 720p buoy frames and one 1080p frame
+             and each non-default one at 720p (RGB contrast, HSV contrast,
+             adaptive taper, blocks 4x3), card against CPU within 1 count
+             but for pixels at an HSI sector edge (at most 1e-4 of a
+             frame); no host sync inside ``balance``; the preprocessor's
+             stage stack card against CPU, exact (every stage but balance
+             and the noise); balance's wall ms and fps at 720p and 1080p.
+12. module — the real entry points as subprocesses: the synthetic camera
              (``--scene zed``, the ZED's four planes) and
              ``modules.red_buoy``, both on a direction named for this run
              and with ``CUAUV_SHM_NAMESPACE`` set to this run's own
@@ -104,16 +113,24 @@ no result):
              the same ``shm.red_buoy_results``; ``modules.yolo`` serving
              the trained gate checkpoint on the synthetic gate scene
              (``shm.yolo_gate`` reports shark and saw); ``modules.gate``
-             with ``CUAUV_GATE_LOCALIZE=1``. Then it removes the blocks and
-             groups this run made.
+             with ``CUAUV_GATE_LOCALIZE=1``; beside it BASELINE config 4: a
+             1280x720 synthetic camera (8 precomputed frames, 30 fps)
+             feeding ``modules.preprocessor``, ``modules.color_balance`` and
+             ``modules.auto_calibrate``, until the ModuleReader has three
+             ``preprocessed``, ``original``, ``balanced`` and ``calibration
+             view`` posts each and ``shm.camera_calibration.exposure`` has
+             left 50.0; each module exits 0 on SIGINT. Then it removes the
+             blocks and groups this run made.
 
 Launch counts are set to 0 just before each path (the chain phase, the
-YOLO phase, the bins phase, the stereo phase, the multicam phase) and read
+YOLO phase, the bins phase, the stereo phase, the multicam phase, the
+correction phase, whose path has no hand kernel) and read
 just after it; with the module processes' own logged counts they are the
 main path's launches, and each kernel of a path must have launched in that
 path's run. Then the CCL kernels', the morphology's, the YOLO path's
 (preamble, conv stack, decode, NMS), the bins path's (per stage), the
-stereo chain's and the two-camera dispatch's device time (torch.profiler)
+stereo chain's, the two-camera dispatch's and the correction chain's (per
+stage, and the preprocessor's stack) device time (torch.profiler)
 beside their event-timed wall time, a ``{"kernels": [...]}`` line and,
 last, the ``{"ok": true, "device": ...}`` line.
 
@@ -182,8 +199,12 @@ SPACING_OPS_PER_TEST = 6
 SPACING_LARGE_K = (2048, 4096)
 
 
+_T0 = time.monotonic()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t_s": round(time.monotonic() - _T0, 1), **fields}), flush=True)
 
 
 def mem_rate(name: str) -> float:
@@ -1632,13 +1653,176 @@ GATE_FIXTURE = REPO / "tests" / "fixtures" / "gate_pico_detect.msgpack"
 DISC_AREA = (20000, 27000)  # the 1080p buoy disc's pixels at thresh_min 140
 
 
+# BASELINE config 4: the correction chain at the ZED's HD720 and at 1080p
+CORRECTION_TS = (0.3, 1.1, 1.9, 2.7)  # four 720p frames of the buoy scene
+CORRECTION_FPS_WINDOW_S = 1.0  # the correction phase's throughput windows
+# card against CPU: 1 count, except pixels whose hue lies this close to an
+# HSI sector edge (the sector then swaps two channels), at most this share
+CORRECTION_EDGE_RAD = 1e-5
+CORRECTION_EDGE_SHARE = 1e-4
+# what config 4's modules post: preprocessor, color_balance (a pair per
+# frame), auto_calibrate
+CONFIG4_POSTS = ("preprocessed", "original", "balanced", "calibration view")
+
+
+def correction_configs():
+    from cuauv_vision_pipeline_tpu_torch.ops.balance import BalanceConfig
+
+    return {"rgb_contrast_correct": BalanceConfig(rgb_contrast_correct=True),
+            "hsv_contrast_correct": BalanceConfig(hsv_contrast_correct=True),
+            "adaptive_cast_correction": BalanceConfig(adaptive_cast_correction=True),
+            "blocks_4x3": BalanceConfig(horizontal_blocks=4, vertical_blocks=3)}
+
+
+def balance_against_cpu(card_out, frame, cfg) -> dict:
+    """A balanced frame from the card against ``balance`` on the CPU: the
+    largest difference, the pixels off by one count, the pixels off by more
+    and those of them farther than CORRECTION_EDGE_RAD from a sector edge
+    (the port's hue on the CPU before the HSI stretch)."""
+    import math
+
+    from cuauv_vision_pipeline_tpu_torch.ops import balance as B
+
+    host = torch.from_numpy(frame)
+    d = (card_out.cpu().to(torch.int32) - B.balance(host, cfg).to(torch.int32)).abs().amax(-1)
+    bad = d > 1
+    far = bad
+    if cfg.hsi_contrast_correct and bool(bad.any()):
+        h = B._rgb_to_hsi(*B.corrected_rgb(host, cfg))[0].double()
+        h = torch.where(h < 0, h + 2 * math.pi, h)
+        third = 2 * math.pi / 3
+        far = bad & ((h - torch.round(h / third) * third).abs() >= CORRECTION_EDGE_RAD)
+    return {"max_abs_err": int(d.max()), "pixels_off_by_1": int((d == 1).sum()),
+            "pixels_off_by_more": int(bad.sum()), "off_by_more_away_from_sector_edges": int(far.sum()),
+            "share_off_by_more": float(bad.float().mean())}
+
+
+def correction_stack(device):
+    """The preprocessor (``modules.preprocessor``) with every stage on
+    (noise off when ``noise`` is false) on ``device``, a fixed noise seed."""
+    import copy
+
+    from cuauv_vision_pipeline_tpu_torch.modules import preprocessor as P
+
+    module = P.Preprocessor(["forward"], copy.deepcopy(P.module_tuners), argv=["--device", str(device)], seed=0)
+    values = dict(balance=True, channel_split=8, grayscale=True, bias_r=40, bias_g=-30, bias_b=20,
+                  contrast=1.37, brightness=-20, blur_kernel=7, noise_stddev=6.0, erode_kernel=2,
+                  dilate_kernel=3, rotate_deg=23.5, resize_factor=0.63, translate_x=7, translate_y=-4)
+    for key, value in values.items():
+        module._module_manager._tuner_sources[key]._current_value = value
+    return module
+
+
+def phase_correction(dev):
+    """BASELINE config 4's device work (``ops/balance.balance``, then the
+    preprocessor's stage stack): no hand kernel lies on this path, so none
+    may launch. The default config on four 720p buoy frames and one 1080p
+    frame, each non-default one once at 720p (RGB contrast, HSV contrast,
+    adaptive taper, blocks 4x3), card against CPU within 1 count but for
+    sector-edge pixels (at most CORRECTION_EDGE_SHARE); balance never
+    synchronises the host (torch's sync debug mode, a one-value read the
+    control); the preprocessor's stack with every stage but balance and the
+    noise card against CPU, exact. Then balance's event-timed wall ms and fps per
+    frame (five windows of CORRECTION_FPS_WINDOW_S) at 720p and 1080p; the
+    device profile comes after the main path (phase_correction_device)."""
+    from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
+    from cuauv_vision_pipeline_tpu_torch.ops.balance import BalanceConfig, balance
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import launch_counts
+
+    before = launch_counts()
+    frames = {"720p": [buoy_frame((BINS_H, BINS_W), t) for t in CORRECTION_TS], "1080p": [buoy_frame((H, W), 0.7)]}
+    card = {size: [torch.from_numpy(f).to(dev) for f in fs] for size, fs in frames.items()}
+    out, failures = {"checks": {}}, []
+    cases = [(f"default_{size}_{i}", BalanceConfig(), f, card[size][i])
+             for size, fs in frames.items() for i, f in enumerate(fs)]
+    cases += [(f"{name}_720p", cfg, frames["720p"][0], card["720p"][0]) for name, cfg in correction_configs().items()]
+    for name, cfg, frame, img in cases:
+        row = balance_against_cpu(balance(img, cfg), frame, cfg)
+        out["checks"][name] = row
+        if row["off_by_more_away_from_sector_edges"] or row["share_off_by_more"] > CORRECTION_EDGE_SHARE:
+            failures.append(f"{name}: {row}")
+    syncs = host_syncs(lambda: [balance(card["720p"][0], cfg) for cfg in (BalanceConfig(),
+                                                                         *correction_configs().values())])
+    out["balance_host_syncs"] = len(syncs)
+    out["control_host_syncs"] = len(host_syncs(lambda: card["720p"][0].sum().item()))
+    if syncs or not out["control_host_syncs"]:
+        failures.append(f"balance synchronised {len(syncs)} times: {syncs} (the control: {out['control_host_syncs']})")
+    # the stack card against CPU without its two stages whose card and CPU
+    # results may differ: balance (checked above) and the noise (another
+    # generator on each device)
+    stack_card, stack_cpu = correction_stack(dev), correction_stack("cpu")
+    for m in (stack_card, stack_cpu):
+        for key in ("balance", "noise_stddev"):
+            m._module_manager._tuner_sources[key]._current_value = type(m.tuners[key])(0)
+    got = stack_card.stages(card["720p"][0]).cpu()
+    want = stack_cpu.stages(torch.from_numpy(frames["720p"][0]))
+    out["preprocessor_stack"] = {"shape": list(got.shape), "equal": bool(torch.equal(got, want)),
+                                 "max_abs_err": int((got.int() - want.int()).abs().max())}
+    if not out["preprocessor_stack"]["equal"]:
+        failures.append(f"preprocessor stack: {out['preprocessor_stack']}")
+    launched = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+    out["hand_kernel_launches"] = launched
+    if launched:
+        failures.append(f"hand kernels launched on a path that has none: {launched}")
+    if failures:
+        emit("correction_checks", **out)
+        raise AssertionError("correction path: " + "; ".join(failures))
+    for size, imgs in card.items():
+        row = {"wall_ms_per_frame": cuda_ms(lambda: balance(imgs[0]), 50)}
+        rates = [fps_window(lambda k: balance(imgs[k % len(imgs)]), 1, CORRECTION_FPS_WINDOW_S)[0]
+                 for _ in range(FPS_REPEATS)]
+        row["fps_per_frame"] = {"median": statistics.median(rates), "min": min(rates), "max": max(rates),
+                                "windows": rates}
+        out[f"balance_{size}"] = row
+    stack_card = correction_stack(dev)
+    out["preprocessor_stack"]["wall_ms_every_stage"] = cuda_ms(lambda: stack_card.stages(card["720p"][0]), 20)
+    out["path_kernels"] = "none: BASELINE config 4 runs no hand kernel (no TPU kernel lies on its path)"
+    emit("correction", **out)
+    return card, stack_card, {size: out[f"balance_{size}"]["wall_ms_per_frame"] for size in card}
+
+
+def phase_correction_device(card, stack, wall_ms):
+    """After the main path: where balance's device time goes (torch.profiler)
+    per stage on its own intermediates — float planes, extrema clipping,
+    equalization, HSI contrast — and whole, at 720p and 1080p: device ms,
+    CUDA kernels per frame, idle share against the unprofiled wall ms; the
+    preprocessor's stack with every stage on at 720p."""
+    from cuauv_vision_pipeline_tpu_torch.ops import balance as B
+
+    cfg = B.BalanceConfig()
+    out = {}
+    for size, imgs in card.items():
+        img = imgs[0]
+
+        def planes():
+            return [img.to(torch.float32)[..., c] for c in (2, 1, 0)]
+
+        r, g, b = planes()
+
+        def clip():
+            return [torch.clamp(c, *B._u8_percentiles(c, 0.002, 0.998)) for c in (r, g, b)]
+
+        rc, gc, bc = clip()
+        re, ge, be = B._equalize_rgb(rc, gc, bc, cfg)
+        stages = {"float_planes": profile_fn(planes), "extrema_clipping": profile_fn(clip),
+                  "equalize": profile_fn(lambda: B._equalize_rgb(rc, gc, bc, cfg)),
+                  "hsi_contrast": profile_fn(lambda: B._hsi_contrast(re, ge, be)),
+                  "whole": profile_fn(lambda: B.balance(img, cfg))}
+        whole = stages["whole"]["device_ms"]
+        out[size] = {"device_ms_per_frame": whole, "kernels_per_frame": stages["whole"]["kernels"],
+                     "wall_ms_per_frame": wall_ms[size], "device_idle_share": 1 - whole / wall_ms[size],
+                     "stages": stages}
+    out["preprocessor_stack_720p"] = profile_fn(lambda: stack.stages(card["720p"][0]))
+    emit("correction_device", **out)
+
+
 def phase_module(run_id: str):
     # this run's own names: the cameras' directions (so the bus blocks and
     # the modules' post and tuner blocks) and the shm namespace of its
     # groups (set in main)
     direction = f"smoke_{run_id}"
     bins_direction = f"{direction}_bins"
-    dirs = {name: f"{direction}_{name}" for name in ("buoy", "imgdir", "stereo", "mczed", "mcflir", "gate")}
+    dirs = {name: f"{direction}_{name}" for name in ("buoy", "imgdir", "stereo", "mczed", "mcflir", "gate", "precam")}
     import cv2
 
     from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
@@ -1658,6 +1842,7 @@ def phase_module(run_id: str):
     pose.set(visible=False, seq_frames=0, latency_ms=0.0)
     stereo = shm.define_group("red_buoy_stereo_results", RESULTS_SCHEMA)
     gate = shm.yolo_gate
+    calib = shm.camera_calibration
     module_name = f"BuoyLAB-on-{direction}"
     procs = []
     stopped = set()  # names of processes stopped on purpose
@@ -1868,9 +2053,18 @@ def phase_module(run_id: str):
         assert out["imgdir_launches"]["label_cuda"] > 0 and out["gate_yolo_launches"]["nms_fixed"] > 0, out
 
         # wave 4: the gate module in localize mode on the same gate camera
-        # (host only: stand-in shark and saw OBBs through GateOBB)
+        # (host only: stand-in shark and saw OBBs through GateOBB); beside
+        # it BASELINE config 4 as the JAX bench runs it (bench.py:2055-2105):
+        # a 1280x720 camera of 8 precomputed frames at 30 fps feeding the
+        # preprocessor, color_balance and auto_calibrate
         gate.set(shark_visible=0, saw_visible=0, shark_area=0.0, saw_area=0.0)
+        calib.set(exposure=50.0)
         start(["cuauv_vision_pipeline_tpu_torch.modules.gate", dirs["gate"]], "gate_module", CUAUV_GATE_LOCALIZE="1")
+        synthetic(dirs["precam"], "buoy", "precam_source", "--width", "1280", "--height", "720", "--fps", "30",
+                  "--precompute", "8")
+        config4 = {"preprocessor": "Preprocessor", "color_balance": "ColorBalance", "auto_calibrate": "AutoCalibrate"}
+        for name in config4:
+            start([f"cuauv_vision_pipeline_tpu_torch.modules.{name}", dirs["precam"]], name)
         wait_for(lambda: gate.shark_visible.get() and gate.saw_visible.get() and gate.shark_area.get() > 0, 120,
                  "the gate module's shm.yolo_gate")
         g = gate.get()
@@ -1878,7 +2072,30 @@ def phase_module(run_id: str):
                                                                    "shark_area", "saw_visible", "saw_area")}
         out["gate_module_posts"] = posts_of(f"GateDetector-on-{dirs['gate']}")
         assert "gate handler" in out["gate_module_posts"], out["gate_module_posts"]
-        out["gate_module_launches"] = stop(("gate_module",), ("gate_source",))["gate_module"]
+        # config 4: each module's posts through the ModuleReader, three or
+        # more of each; auto_calibrate moves the exposure off its default
+        seen, readers = {}, []
+        try:
+            for cls in config4.values():
+                module = f"{cls}-on-{dirs['precam']}"
+                wait_for(lambda m=module: m in ModuleReader.get_active_modules(), 60, f"{module}'s blocks")
+                reader = ModuleReader(module)
+                reader.register_post_udl(lambda m, n, i, img, cs: seen.setdefault(n, []).append(tuple(img.shape)))
+                reader.run_forever(fps=30)
+                readers.append(reader)
+            wait_for(lambda: all(len(seen.get(n, ())) >= 3 for n in CONFIG4_POSTS), 120, "config 4's posts")
+            wait_for(lambda: calib.exposure.get() != 50.0, 30, "auto_calibrate to move shm.camera_calibration")
+        finally:
+            for reader in readers:
+                reader.unblock()
+        out["config4_posts"] = {n: {"count": len(v), "shapes": sorted(set(v))} for n, v in seen.items()}
+        assert all(set(seen[n]) == {(BINS_H, BINS_W, 3)} for n in CONFIG4_POSTS), out["config4_posts"]
+        g = calib.get()
+        out["config4_camera_calibration"] = {k: getattr(g, k) for k in ("exposure", "red_gain", "green_gain",
+                                                                          "blue_gain")}
+        launches = stop(("gate_module", *config4), ("gate_source", "precam_source"))
+        out["gate_module_launches"] = launches["gate_module"]
+        out["config4_launch_counts"] = {name: launches[name] for name in config4}
     finally:
         for p, log, _ in procs:
             if p.poll() is None:
@@ -1955,7 +2172,8 @@ def main() -> int:
     # and read just after it; every kernel of a path must have launched
     path_kernels = {"red_buoy": ("label_cuda", "label_cuda_batched", "fused_morph"),
                     "yolo": ("nms_fixed",), "bins": ("fused_morph", "spacing_select"),
-                    "stereo": ("label_cuda_batched", "fused_morph"), "multicam": ("nms_fixed",)}
+                    "stereo": ("label_cuda_batched", "fused_morph"), "multicam": ("nms_fixed",),
+                    "correction": ()}
     counts = dict.fromkeys(launch_counts(), 0)
 
     def run_path(path, drive):
@@ -1973,6 +2191,7 @@ def main() -> int:
     card, bins_image, bins_wall_ms = run_path("bins", lambda: phase_bins(dev))
     stereo_in, stereo_wall_ms = run_path("stereo", lambda: phase_stereo(dev))
     multicam = run_path("multicam", lambda: phase_multicam(dev))
+    correction = run_path("correction", lambda: phase_correction(dev))
     module = phase_module(run_id)
     for key, launched in module.items():
         if key.endswith("_launches"):
@@ -1987,6 +2206,7 @@ def main() -> int:
     phase_bins_device(card, bins_image, bins_wall_ms, spacing_input, spacing_large)
     phase_stereo_device(stereo_in, stereo_wall_ms)
     phase_multicam_device(*multicam, rate)
+    phase_correction_device(*correction)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

@@ -8,9 +8,12 @@ quietly on the host.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
+
+DeviceLike = Optional[Union[str, int, torch.device]]
 
 
 @contextlib.contextmanager
@@ -25,7 +28,7 @@ def full_f32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
-def resolve_device(spec: Optional[Union[str, int, torch.device]] = None) -> torch.device:
+def resolve_device(spec: DeviceLike = None) -> torch.device:
     """``None`` -> ``cuda:0``; ``N`` or ``"N"`` -> ``cuda:N``; ``"cpu"`` ->
     the CPU; a ``torch.device`` or ``"cuda:N"`` as given. Raises
     RuntimeError when CUDA is asked for (by default) but unavailable, or
@@ -53,3 +56,12 @@ def resolve_device(spec: Optional[Union[str, int, torch.device]] = None) -> torc
             f"{torch.cuda.device_count()} CUDA device(s)"
         )
     return torch.device("cuda", index)
+
+
+def run_np(fn: Callable, mat: np.ndarray, device: DeviceLike = None) -> np.ndarray:
+    """``fn(tensor)`` for the array ``mat`` on ``device`` (resolved as
+    above: cuda:0 unless told ``cpu``), returned as a numpy array: the
+    numpy-in/numpy-out API of ``utils/`` and ``ops/balance.process_frame``
+    over the tensor ops."""
+    t = torch.from_numpy(np.ascontiguousarray(mat)).to(resolve_device(device))
+    return fn(t).cpu().numpy()

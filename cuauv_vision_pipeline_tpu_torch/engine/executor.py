@@ -166,6 +166,10 @@ class DevicePipeline:
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         return self._fn(*tuple(self.to_device(a) for a in args), **kwargs)
 
+    def run_sync(self, *args: Any, **kwargs: Any) -> Any:
+        """Run and materialize the results as numpy (blocking)."""
+        return _materialize(self(*args, **kwargs))
+
 
 class StreamExecutor:
     """Depth-N software pipeline over a DevicePipeline.

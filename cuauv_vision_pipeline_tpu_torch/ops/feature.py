@@ -29,11 +29,7 @@ import torch.nn.functional as F
 
 from ..core.device import full_f32
 from .cuda.spacing_kernel import spacing_select
-
-
-def _recip(c: float) -> float:
-    """float32 1/c (the constant XLA multiplies by for ``x / c``)."""
-    return float(np.float32(1) / np.float32(c))
+from .ieee import recip_f32 as _recip
 
 
 _TWO_PI = 2 * np.pi

@@ -83,5 +83,13 @@ def test_rect_morphology_exact(op, shape):
 
 
 def test_morphology_rejects_non_rect_kernel():
-    with pytest.raises(ValueError, match="rectangular"):
-        tmorph.erode(torch.zeros((8, 8), dtype=torch.uint8), np.eye(3, dtype=np.uint8))
+    """Non-rectangular 0/1 elements are supported since the correction
+    chain's port (equal to the JAX package's shifted-slice reduction); what
+    is still rejected is an element that is empty or not 2-D."""
+    mask = ((np.random.default_rng(5).random((8, 8)) < 0.5) * 255).astype(np.uint8)
+    kernel = np.eye(3, dtype=np.uint8)
+    np.testing.assert_array_equal(tmorph.erode(torch.from_numpy(mask), kernel).numpy(),
+                                  np.asarray(jmorph.erode(mask, kernel)))
+    for bad in (np.zeros((3, 3), np.uint8), np.ones((3, 3, 1), np.uint8)):
+        with pytest.raises(ValueError, match="structuring element"):
+            tmorph.erode(torch.zeros((8, 8), dtype=torch.uint8), bad)

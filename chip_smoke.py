@@ -27,8 +27,16 @@ no result):
 5. nms     — the greedy-NMS kernel against its plain version on card
              tensors (the pools of tests/nms_cases.py: 1 to 8400
              candidates, exact ties, none above the threshold, fewer than
-             max_det, rotated poles; B=1 and B=8), ProbIoU and AABB, each
-             launched twice; picked and valid exact.
+             max_det, rotated poles, a NaN, -inf and negative scores,
+             decode-sorted pools, ties across the walk's chunks, picks deep
+             in the order, the merge's padded pool, max_det > P; B=1 and
+             B=8), ProbIoU and AABB class-aware and ProbIoU any-class, each
+             launched twice; picked and valid exact. Then the kernel at
+             the timing shapes of tests/nms_cases.py (B=1 and B=2 at 512,
+             the merge's 64 AABB, 8400, 20000 and 58112 sorted, 8400
+             unsorted): event-timed ms, device ms per launch, plain ms,
+             bound, and the block barriers of its launch beside those of a
+             round-per-pick design.
 6. spacing — the greedy spacing kernel against its plain version on card
              tensors (tests/spacing_cases.py: K = 1 to 4096, every K the
              fixpoint's block shape changes at, no candidate, dense 3-px
@@ -181,6 +189,8 @@ _F32_RATE = 67e12
 # sqrt, the clamp) and its threshold compare
 NMS_OPS_PER_IOU = 38
 MORPH_OPS = ("open_close", "open", "close")
+# csrc/nms.cu: candidates ordered and walked at a time (kBatch)
+NMS_BATCH = 1024
 # CUDA launches behind one wrapper call (csrc/ccl.cu: local, border, final)
 CUDA_LAUNCHES_PER_CALL = {"label_cuda": 3, "label_cuda_batched": 3, "fused_morph": 1, "nms_fixed": 1,
                           "spacing_select": 2}
@@ -702,12 +712,13 @@ def profile_chain(run, frames, tmin, wall_ms, n=20):
     }
 
 
-def phase_nms(dev):
+def phase_nms(dev, rate):
     """The NMS kernel against its plain version (torch ops) on the same card
-    tensors: every pool of tests/nms_cases.py, ProbIoU and AABB, each
-    kernel launch twice; picked and valid exact."""
+    tensors: every pool of tests/nms_cases.py, ProbIoU and AABB class-aware
+    and ProbIoU any-class, each kernel launch twice; picked and valid
+    exact. Then :func:`nms_timing` at each timing shape."""
     sys.path.insert(0, str(REPO / "tests"))
-    from nms_cases import cases
+    from nms_cases import cases, timing_pools
 
     from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
     from cuauv_vision_pipeline_tpu_torch.ops.cuda.nms_kernel import nms_fixed_plain
@@ -716,17 +727,102 @@ def phase_nms(dev):
     for case, arrays in cases().items():
         boxes, scores, classes, angles = (torch.from_numpy(a).to(dev) for a in arrays[:4])
         max_det = arrays[4]
-        for rotated in (True, False):
+        for rotated, class_aware in ((True, True), (False, True), (True, False)):
             ang = angles if rotated else None
-            want = nms_fixed_plain(boxes, scores, classes, 0.45, max_det, True, ang)
+            name = f"{case}_{'probiou' if rotated else 'aabb'}{'' if class_aware else '_any_class'}"
+            want = nms_fixed_plain(boxes, scores, classes, 0.45, max_det, class_aware, ang)
             for rep in range(2):
-                got = nms_fixed_cuda(boxes, scores, classes, ang, 0.45, max_det)
+                got = nms_fixed_cuda(boxes, scores, classes, ang, 0.45, max_det, class_aware)
                 torch.cuda.synchronize()
                 if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                    raise AssertionError(f"nms_fixed differs from its plain version on {case} "
-                                         f"({'probiou' if rotated else 'aabb'}, launch {rep})")
-            checks.append(f"{case}_{'probiou' if rotated else 'aabb'}")
-    emit("nms", checks=len(checks), cases=checks)
+                    raise AssertionError(f"nms_fixed differs from its plain version on {name} (launch {rep})")
+            checks.append(name)
+    shapes = {}
+    for name, arrays in timing_pools().items():
+        pool = tuple(a if not isinstance(a, np.ndarray) else torch.from_numpy(a).to(dev) for a in arrays)
+        shapes[name] = nms_timing(pool, rate, plain_reps=5)
+    emit("nms", checks=len(checks), cases=checks, shapes=shapes)
+
+
+def bitonic_barriers(n: int) -> int:
+    """Block barriers of csrc/nms.cu's bitonic_desc on n keys (a step and
+    the next with strides <= 32 share a warp barrier)."""
+    count, k = 0, 2
+    while k <= n:
+        j = k // 2
+        while j:
+            nxt = j // 2 if j > 1 else k
+            count += not (j <= 32 and nxt <= 32 and not (j == 1 and k == n))
+            j //= 2
+        k *= 2
+    return count
+
+
+def nms_barriers(scores, picked, valid, max_det) -> dict:
+    """The longest chain of block barriers over a pool's rows (each row is
+    a block of its own), read from the code: csrc/nms.cu's (one after the
+    first pass; per batch of NMS_BATCH, for a pool not in walk order, a
+    radix select's 18 when more remain, the gather's, the sort's and the
+    terms'; for a sorted pool one per batch after the first; one per
+    32-candidate chunk walked, up to the chunk of the last pick) and a
+    round-per-pick design's (one, three per round and two for a round that
+    finds no pick); and the chunks walked."""
+    out = {"barriers": 0, "barriers_round_per_pick": 0, "chunks": 0}
+    for s, p, v in zip(scores.cpu().numpy(), picked.cpu().numpy(), valid.cpu().numpy()):
+        n_picks = int(v.sum())
+        pos = s > 0
+        n_pos = 0 if np.isnan(s).any() else int(pos.sum())
+        ordered = bool((~pos[1:] | (s[:-1] >= s[1:])).all())
+        last = n_pos - 1
+        if n_picks == max_det:  # the last pick's place in the walk order
+            i = p[n_picks - 1]
+            last = int((pos & ((s > s[i]) | ((s == s[i]) & (np.arange(len(s)) < i)))).sum())
+        barriers, chunks, taken = 1, 0, 0
+        while taken < n_pos and taken <= last:
+            nb = min(NMS_BATCH, n_pos - taken)
+            if ordered:
+                barriers += taken > 0
+            else:
+                select = 18 if n_pos - taken > NMS_BATCH else 0
+                barriers += select + 2 + bitonic_barriers(1 << (nb - 1).bit_length())
+            walked = -(-min(nb, last - taken + 1) // 32)
+            chunks, barriers, taken = chunks + walked, barriers + walked, taken + nb
+        out["barriers"] = max(out["barriers"], barriers)
+        out["chunks"] = max(out["chunks"], chunks)
+        rounds = 1 + 3 * n_picks + (2 if n_picks < max_det else 0)
+        out["barriers_round_per_pick"] = max(out["barriers_round_per_pick"], rounds)
+    return out
+
+
+def nms_timing(pool, rate, plain_reps: int = 10) -> dict:
+    """The NMS kernel on one pool ``(boxes, scores, classes, angles,
+    iou_thresh, max_det)`` (class-aware, as decode and the merge call it):
+    held against its plain version, then its event-timed ms (median of
+    100), device ms per recorded launch (torch.profiler), the plain
+    version's ms, the bound (the pool read once and the picks written, or
+    the float operations :func:`nms_work` counts, over the card's rates)
+    and :func:`nms_barriers`."""
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda.nms_kernel import nms_fixed_plain
+
+    boxes, scores, classes, angles, iou, max_det = pool
+    want = nms_fixed_plain(boxes, scores, classes, iou, max_det, True, angles)
+    got = nms_fixed_cuda(*pool)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"nms_fixed differs from its plain version on a {tuple(scores.shape)} pool")
+    B, P = scores.shape
+    rounds, scanned, ious = nms_work(boxes, scores, classes, angles, iou, max_det)
+    t_bytes = (B * P * (16 + 4 + 4 + (4 if angles is not None else 0)) + B * max_det * 5) / rate * 1e3
+    t_ops = (2 * scanned + NMS_OPS_PER_IOU * ious) / _F32_RATE * 1e3
+    prof = profile_fn(lambda: nms_fixed_cuda(*pool))
+    return {"B": B, "P": P, "picks": int(want[1].sum()), "rounds": rounds, "scanned": scanned, "ious": ious,
+            "ms": cuda_ms(lambda: nms_fixed_cuda(*pool), 100),
+            "device_ms": prof["device_ms"] / prof["kernels"], "launches_traced_per_call": prof["kernels"],
+            "plain_ms": cuda_ms(lambda: nms_fixed_plain(boxes, scores, classes, iou, max_det, True, angles),
+                                plain_reps),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **nms_barriers(scores, *want, max_det)}
 
 
 def spacing_work(kept: torch.Tensor, cand: torch.Tensor) -> int:
@@ -1077,26 +1173,21 @@ def nms_work(boxes, scores, classes, angles, iou_thresh, max_det):
 def phase_yolo_device(serve, image, pool, rate):
     """Where a 1080p frame's device time goes on the YOLO path (profiled
     after the main path): the letterbox, +conv stack, the whole
-    device_decode, and the NMS kernel alone on the frame's own pool (held
-    against its plain version there too); the kernel's event-timed ms,
-    plain ms and bound for the kernels line."""
+    device_decode, and the NMS kernel alone on the frame's own pool
+    (:func:`nms_timing`, held against its plain version there too) for the
+    kernels line."""
     from cuauv_vision_pipeline_tpu_torch.models.yolo.model import preprocess_fused
     from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
-    from cuauv_vision_pipeline_tpu_torch.ops.cuda.nms_kernel import nms_fixed_plain
 
-    boxes, scores, classes, angles, iou_thresh, max_det = pool
-    want = nms_fixed_plain(boxes, scores, classes, iou_thresh, max_det, True, angles)
-    got = nms_fixed_cuda(*pool)
-    torch.cuda.synchronize()
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("nms_fixed differs from its plain version on the serving frame's pool")
+    timing = nms_timing(pool, rate, plain_reps=20)
     wall = cuda_ms(lambda: serve.device_decode(image), 50)
     stages = {
         "preprocess": profile_fn(lambda: preprocess_fused(image[None], serve.image_size)),
         "preprocess_and_convs": profile_fn(lambda: serve.head_outputs(image[None])),
         "device_decode": profile_fn(lambda: serve.device_decode(image)),
         "nms_fixed": profile_fn(lambda: nms_fixed_cuda(*pool)),
-        # one round only: the prologue and launch, so the rest is 31 rounds
+        # max_det 1: the first pass and the first chunk, the rest is the
+        # walk to the last pick
         "nms_fixed_one_round": profile_fn(lambda: nms_fixed_cuda(*pool[:5], 1)),
     }
     whole = stages["device_decode"]["device_ms"]
@@ -1106,32 +1197,19 @@ def phase_yolo_device(serve, image, pool, rate):
         "nms_fixed": stages["nms_fixed"]["device_ms"],
     }
     split["decode"] = whole - stages["preprocess_and_convs"]["device_ms"] - split["nms_fixed"]
-    B, P = scores.shape
-    rounds, scanned, ious = nms_work(*pool[:4], iou_thresh, max_det)
     row = dict(
         source="cuauv_vision_pipeline_tpu_torch/csrc/nms.cu",
         replaces="cuauv_vision_pipeline_tpu/models/yolo/decode.py:150",
-        ms=cuda_ms(lambda: nms_fixed_cuda(*pool), 100),
-        plain_ms=cuda_ms(lambda: nms_fixed_plain(boxes, scores, classes, iou_thresh, max_det, True, angles), 20),
-        library_ms=None, max_abs_err=0,
+        ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
+        bound_by=timing["bound_by"], library_ms=None, max_abs_err=0,
     )
-    # the pool read once (boxes, score, class, angle), picked and valid written
-    t_bytes = (B * P * (16 + 4 + 4 + 4) + B * max_det * 5) / rate * 1e3
-    # two compares per scanned candidate (best score, class), one IoU per pair
-    t_ops = (2 * scanned + NMS_OPS_PER_IOU * ious) / _F32_RATE * 1e3
-    row["bound_ms"] = max(t_bytes, t_ops)
-    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     # per launch: a trace may hold fewer kernel events than calls
     per_launch = {k: stages[k]["device_ms"] / stages[k]["kernels"] for k in ("nms_fixed", "nms_fixed_one_round")}
-    # the kernel's rounds: the picks and, short of max_det, one that finds none
-    kernel_rounds = min(max_det, rounds + 1)
-    round_us = (per_launch["nms_fixed"] - per_launch["nms_fixed_one_round"]) / max(kernel_rounds - 1, 1) * 1e3
+    extra_us = (per_launch["nms_fixed"] - per_launch["nms_fixed_one_round"]) / max(timing["picks"] - 1, 1) * 1e3
     emit("yolo_device", wall_ms_per_frame=wall, device_ms_per_frame=whole,
          device_idle_share=1 - whole / wall, kernels_per_frame=stages["device_decode"]["kernels"],
-         split_device_ms=split, stages=stages, nms_pool=P, nms_rounds=rounds,
-         nms_scanned=scanned, nms_ious=ious, nms_bound_bytes_ms=t_bytes, nms_bound_ops_ms=t_ops,
-         nms_device_ms_per_launch=per_launch, nms_round_us=round_us,
-         nms_ms=row["ms"], nms_plain_ms=row["plain_ms"], nms_bound_ms=row["bound_ms"])
+         split_device_ms=split, stages=stages, nms=timing,
+         nms_device_ms_per_launch=per_launch, nms_us_per_pick_after_the_first=extra_us)
     return row
 
 
@@ -1610,30 +1688,13 @@ def phase_multicam_device(serve, cams, pool, dets, wall_ms, rate):
     (the letterboxes, + the batch-2 conv stack, the whole dispatch), the NMS
     kernel at B = 2 on the dispatch's own pool and the cross-camera merge
     (B = 1, 64 candidates, AABB), each against its plain version, with their
-    event-timed ms and bounds."""
-    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
-    from cuauv_vision_pipeline_tpu_torch.ops.cuda.nms_kernel import nms_fixed_plain
+    event-timed ms and bounds (:func:`nms_timing`)."""
     from cuauv_vision_pipeline_tpu_torch.parallel.crosscam import cross_camera_nms
 
     flat = dets.reshape(-1, 6)
     merge_pool = (flat[None, :, :4].contiguous(), flat[None, :, 4].contiguous(), flat[None, :, 5].to(torch.int32),
                   None, 0.55, 32)
-    nms = {}
-    for name, p in (("b2", pool), ("merge", merge_pool)):
-        boxes, scores, classes, angles, iou, max_det = p
-        want = nms_fixed_plain(boxes, scores, classes, iou, max_det, True, angles)
-        got = nms_fixed_cuda(*p)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"nms_fixed differs from its plain version on the {name} pool")
-        B, P = scores.shape
-        rounds, scanned, ious = nms_work(boxes, scores, classes, angles, iou, max_det)
-        t_bytes = (B * P * (16 + 4 + 4 + (4 if angles is not None else 0)) + B * max_det * 5) / rate * 1e3
-        t_ops = (2 * scanned + NMS_OPS_PER_IOU * ious) / _F32_RATE * 1e3
-        nms[name] = {"B": B, "P": P, "rounds": rounds, "scanned": scanned, "ious": ious,
-                     "ms": cuda_ms(lambda: nms_fixed_cuda(*p), 100),
-                     "plain_ms": cuda_ms(lambda: nms_fixed_plain(boxes, scores, classes, iou, max_det, True, angles), 10),
-                     "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     **{f"device_{k}": v for k, v in profile_fn(lambda: nms_fixed_cuda(*p)).items()}}
+    nms = {name: nms_timing(p, rate) for name, p in (("b2", pool), ("merge", merge_pool))}
     stages = {
         "letterboxes": profile_fn(lambda: [serve._letterbox(c[None]) for c in cams]),
         "letterboxes_and_convs": profile_fn(lambda: serve.head_outputs_multi(cams)),
@@ -2165,7 +2226,7 @@ def main() -> int:
     frames = [torch.from_numpy(buoy_frame((H, W), 0.4 * i)).to(dev) for i in range(8)]
     rows, ccl_inputs, masks = phase_kernels(dev, frames, rate)
 
-    phase_nms(dev)
+    phase_nms(dev, rate)
     spacing_row, spacing_input, spacing_large = phase_spacing(dev, rate)
 
     # the main path, path by path: the counts set to 0 just before each path

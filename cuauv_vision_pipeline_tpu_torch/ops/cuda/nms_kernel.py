@@ -7,16 +7,25 @@ Pallas kernel). The plain version, :func:`nms_fixed_plain` below, is that
 loop in torch ops: CPU tensors take it; CUDA tensors launch the kernel
 (counting one launch) or raise.
 
-Design (see the source's header): one thread block per image, the alive
-scores in shared memory, each candidate's IoU terms computed once into a
-``[B, 6, P]`` scratch, then ``max_det`` rounds of a block-wide argmax
-(lowest index among equal scores) and a suppression pass. The arithmetic
-matches the plain version operation for operation (built with
-``--fmad=false``), so picks are exact against it on the card.
-
-Bound on this card: the ``max_det`` dependent rounds (two block barriers
-and two reductions each); the bytes (the pool read once, ~14 KB at P =
-512) and the operations (~40 per candidate and round) take nanoseconds.
+Design (see the source's header): one thread block per image. What bounds
+greedy NMS on this card is its chain of dependent steps, not bytes (the
+pool is read once, ~14 KB at P = 512) or operations (a few thousand IoUs).
+So the kernel orders the pool once and walks it: the picks are the
+candidates met in (score desc, index asc) order that are > 0 and that no
+earlier pick suppresses. A pool already in that order (decode's, sorted by
+``_top_pool``) is walked in place; any other is ordered in shared memory,
+up to 1024 candidates at a time (a radix select of the next 1024 keys when
+more remain, then a bitonic sort). The walk takes 32 candidates at a time:
+the chunk's 496 own pairs and the chunk against the picks so far in
+parallel, one IoU per thread while there are at most 16 picks; then every
+warp resolves the chunk alike with ``__ffs`` on bit masks. One block
+barrier per chunk where a round per pick took three per pick.
+IoU terms, classes and picks stay in shared memory (picks past 1024 spill
+to a scratch allocated here). A row holding a NaN score has no picks, as
+in the plain version (``torch.argmax`` takes NaN as the largest score, so
+every round picks it and finds it not > 0). The arithmetic matches the
+plain version operation for operation (built with ``--fmad=false``), so
+picks are exact against it on the card.
 """
 
 from __future__ import annotations
@@ -38,9 +47,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "nms_fixed": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P]),
+    "nms_shared_picks": (_I, []),
     "nms_error_string": (ctypes.c_char_p, [_I]),
 }
-_MAX_POOL = 232448 // 4  # the alive scores of one image in a block's shared memory
+# the largest pool taken (the kernel's keys hold a 16-bit index, so up to
+# 65536 would do; this is the limit the wrapper has always had)
+_MAX_POOL = 232448 // 4
 
 
 def _nms_geometry(boxes_xyxy: torch.Tensor, angles=None) -> torch.Tensor:
@@ -109,7 +121,9 @@ def nms_fixed_plain(
     max_det]``. Scores <= 0 are never selected; each round picks the
     highest alive score (the lowest index among equals) and zeroes it and
     every same-class candidate whose IoU with it is >= ``iou_thresh``
-    (rotated ProbIoU when ``angles`` is given)."""
+    (rotated ProbIoU when ``angles`` is given). ``argmax`` takes NaN as
+    the largest score, so a row holding a NaN has no picks, as with
+    ``jnp.argmax`` in the JAX package."""
     single = scores.ndim == 1
     if single:
         boxes_xyxy, scores, classes = boxes_xyxy[None], scores[None], classes[None]
@@ -165,14 +179,16 @@ def nms_fixed_cuda(
         _build.check_tensor("angles", angles, torch.float32, (B, P), dev)
 
     lib = _build.load("nms", _SIGNATURES)
-    geom = torch.empty((B, 6, P), dtype=torch.float32, device=dev)
+    n_picks = min(max_det, P)
+    scratch = (torch.empty((B, 7, n_picks), dtype=torch.int32, device=dev)
+               if n_picks > lib.nms_shared_picks() else None)
     picked = torch.empty((B, max_det), dtype=torch.int32, device=dev)
     valid = torch.empty((B, max_det), dtype=torch.bool, device=dev)
     nms_fixed_cuda.launches += 1
     err = lib.nms_fixed(
         boxes_xyxy.data_ptr(), scores.data_ptr(), classes.data_ptr(),
         None if angles is None else angles.data_ptr(),
-        geom.data_ptr(), picked.data_ptr(), valid.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), picked.data_ptr(), valid.data_ptr(),
         B, P, max_det, float(iou_thresh), int(bool(class_aware)),
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -134,6 +134,26 @@ def test_nms_plain_matches_jax(case, rotated):
         np.testing.assert_array_equal(got[1][b].numpy(), np.asarray(want[1]))
 
 
+@pytest.mark.parametrize("rotated", [True, False], ids=["probiou", "aabb"])
+def test_nms_nan_score_means_no_picks(rotated):
+    """argmax takes NaN as the largest score (torch and jnp alike), so every
+    round picks the NaN, finds it not > 0 and picks nothing: a pool with a
+    NaN has no picks, though 0.9 and 0.5 lie far apart."""
+    boxes = np.float32([[0, 0, 10, 10], [20, 20, 30, 30], [40, 40, 50, 50]])
+    scores = np.float32([0.9, np.nan, 0.5])
+    classes = np.zeros(3, np.int32)
+    angles = np.zeros(3, np.float32)
+    got = nms_fixed_plain(torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(classes),
+                          max_det=3, angles=torch.from_numpy(angles) if rotated else None)
+    want = _jnms(boxes, scores, classes, max_det=3, angles=angles if rotated else None)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert got[0].tolist() == [-1, -1, -1] and not got[1].any()
+    scores[1] = 0.7  # without the NaN all three are picks
+    assert nms_fixed_plain(torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(classes),
+                           max_det=3)[0].tolist() == [0, 1, 2]
+
+
 def test_nms_rotated_poles_kept_aabb_merged():
     boxes, scores, classes, angles = (torch.from_numpy(a[0]) for a in poles(1)[:4])
     _, valid_rot = nms_fixed_plain(boxes, scores, classes, max_det=2, angles=angles)

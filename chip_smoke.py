@@ -59,7 +59,24 @@ no result):
              the trained fixture in bf16 on the card over 24 synthetic scenes
              (recall and precision >= 0.75); (c) event-timed ms per frame and
              per-frame fps over five 2 s windows.
-8. bins    — the bins + pose path (BinDetector, BASELINE config 3: HSV mask,
+8. yolo_tasks — the rest of YOLO serving at full width: (a) YOLOv8n-seg
+             (15 classes, 32 masks, 160x160 prototypes) and YOLOv8n-pose
+             (17 keypoints) at 640, float32 on the card against the CPU on
+             a 1080p ZED frame, and the trained segment fixture on four
+             scenes: head maps (prototypes too) within HEADS_ATOL, TF32 on
+             failing it, selection exact on the card's candidates,
+             keypoints within 1e-3, masks equal but within 1e-5 of 0.5; (b)
+             the segment fixture in bf16 over 16 scenes (recall >= 0.7,
+             precision >= 0.55, mask IoU >= 0.7); (c) int8 and w8a8: every
+             int8 convolution of one w8a8 forward (YOLOv8n-seg, -obb) equal
+             to its plain version, the fixtures' accuracy within the JAX
+             package's budgets of bf16; (d) YOLOv8n-cls (1000 classes, 224)
+             float32 probabilities within 1e-7 of the CPU's, top 5 equal;
+             (e) per serving model (seg, pose, cls in bf16; obb int8 and
+             w8a8) event-timed ms, fps, device ms, kernels and idle share
+             per 1080p frame, nms_fixed launches and the packed fetch's
+             bytes (the masks').
+9. bins    — the bins + pose path (BinDetector, BASELINE config 3: HSV mask,
              ``fused_morph`` open, detect/describe with the spacing kernel,
              2-NN against the builtin template) at 720p on the card against
              the same chain on the CPU, four frames: cleaned mask and
@@ -69,13 +86,13 @@ no result):
              inliers within 12 px of the pasted plate; wall ms, fps over five
              2 s windows and the host leg's ms. TF32 must be off again after
              the YOLO phase's control.
-9. stereo  — the stereo red_buoy chain (BuoyStereo.stereo_chain: both ZED
+10. stereo — the stereo red_buoy chain (BuoyStereo.stereo_chain: both ZED
              eyes as one [2, H, W] batch) on two 1080p planes at the disc
              threshold and the whole frame, card against CPU: masks and
              cleaned masks exact, found and area exact, centroid within
              1e-3; one label_cuda_batched and one fused_morph launch per
              call; no host sync; wall ms and fps.
-10. multicam — config 5's two cameras (zed 1280x720, flir 800x600) through
+11. multicam — config 5's two cameras (zed 1280x720, flir 800x600) through
              YoloModel.device_decode_multi (one conv stack at batch 2, one
              NMS launch): float32 head maps against the CPU's per camera,
              each camera's picks against that camera decoded alone (the
@@ -83,7 +100,7 @@ no result):
              YOLOv8n-obb); the bf16 serving model's dispatch, its
              cross-camera merge on the card against the CPU's; wall ms and
              fps.
-11. correction — BASELINE config 4's device work, which runs no hand
+12. correction — BASELINE config 4's device work, which runs no hand
              kernel (none may launch): ``ops/balance.balance`` with the
              default config on four 720p buoy frames and one 1080p frame
              and each non-default one at 720p (RGB contrast, HSV contrast,
@@ -92,7 +109,7 @@ no result):
              frame); no host sync inside ``balance``; the preprocessor's
              stage stack card against CPU, exact (every stage but balance
              and the noise); balance's wall ms and fps at 720p and 1080p.
-12. module — the real entry points as subprocesses: the synthetic camera
+13. module — the real entry points as subprocesses: the synthetic camera
              (``--scene zed``, the ZED's four planes) and
              ``modules.red_buoy``, both on a direction named for this run
              and with ``CUAUV_SHM_NAMESPACE`` set to this run's own
@@ -127,11 +144,19 @@ no result):
              ``modules.auto_calibrate``, until the ModuleReader has three
              ``preprocessed``, ``original``, ``balanced`` and ``calibration
              view`` posts each and ``shm.camera_calibration.exposure`` has
-             left 50.0; each module exits 0 on SIGINT. Then it removes the
-             blocks and groups this run made.
+             left 50.0; beside them ``modules.record --mono`` on the gate
+             camera with the mission active (config 2's record leg, into a
+             directory of this run under ``smoke_logs/``), and
+             ``modules.yolo`` serving the trained segment fixture on a zed
+             camera of its own (frames advance, its posts, its ``nms_fixed``
+             launches). Then config 2's replay leg: ``capture_sources.video``
+             loops the recorded mp4 into ``modules.yolo`` with the gate
+             checkpoint until ``shm.yolo_gate`` reports shark and saw. Each
+             module exits 0 on SIGINT. Then it removes the blocks, groups
+             and recording this run made.
 
 Launch counts are set to 0 just before each path (the chain phase, the
-YOLO phase, the bins phase, the stereo phase, the multicam phase, the
+YOLO phase, the yolo_tasks phase, the bins phase, the stereo phase, the multicam phase, the
 correction phase, whose path has no hand kernel) and read
 just after it; with the module processes' own logged counts they are the
 main path's launches, and each kernel of a path must have launched in that
@@ -924,9 +949,15 @@ def zed_frames(n: int):
     return [buoy_frame((H, W), 0.4 * i) for i in range(n)]
 
 
+def head_maps(heads: dict, key: str) -> list:
+    """One output's maps: per scale, or segment's single prototype map."""
+    return heads[key] if isinstance(heads[key], list) else [heads[key]]
+
+
 def heads_err(got, want) -> float:
     """Max |difference| of per-scale head maps (card against CPU)."""
-    return max((g.cpu() - w).abs().max().item() for key in want for g, w in zip(got[key], want[key]))
+    return max((g.cpu() - w).abs().max().item()
+               for key in want for g, w in zip(head_maps(got, key), head_maps(want, key)))
 
 
 @contextlib.contextmanager
@@ -965,27 +996,37 @@ def tf32_allowed():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
+def to_cpu(x):
+    """A tensor, a list of them or a dict of them, on the CPU."""
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [to_cpu(v) for v in x]
+    return None if x is None else x.cpu()
+
+
 def decode_card_and_cpu(model, heads):
     """The card's f32 head maps decoded on the card and on the CPU, in
     decode's two halves. The elementwise half (DFL, boxes, sigmoid) rounds
     differently on the two devices: its largest differences. The selection
-    half (stable-sort pool, gathers, NMS) given the card's own candidates:
-    whether valid, cls, picked, score and xyxy are equal. And whether the
-    whole decode on the CPU picks as the card does."""
+    half (stable-sort pool, gathers, NMS, then the winners' keypoints and
+    masks) given the card's own candidates: whether valid, cls, picked,
+    score and xyxy are equal; the keypoints' largest difference; the mask
+    pixels that differ where the CPU's probability is not within MASK_EDGE
+    of 0.5. And whether the whole decode on the CPU picks as the card
+    does."""
     from cuauv_vision_pipeline_tpu_torch.models.yolo.decode import candidates, select
     from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
-
-    def cpu(xs):
-        return [None if x is None else x.cpu() for x in xs]
 
     kw = dict(iou_thresh=0.45, max_det=model.max_det, nms_pool=model.nms_pool)
     before = nms_fixed_cuda.launches  # a comparison, not the main path's launch
     calls: list = []
-    with torch.inference_mode(), recording_nms(calls):
+    probs: list = []
+    with torch.inference_mode(), recording_nms(calls), recording_masks(probs):
         card = candidates(heads, model.model.reg_max, model.conf_thresh)
-        host = candidates({k: cpu(v) for k, v in heads.items()}, model.model.reg_max, model.conf_thresh)
+        host = candidates(to_cpu(heads), model.model.reg_max, model.conf_thresh)
         got = select(*card, model.image_size, **kw)
-        want = select(*cpu(card), model.image_size, **kw)
+        want = select(*to_cpu(card), model.image_size, **kw)
         whole = select(*host, model.image_size, **kw)
     nms_fixed_cuda.launches = before
     (_, got_picks), (_, want_picks), (_, whole_picks) = calls
@@ -996,7 +1037,15 @@ def decode_card_and_cpu(model, heads):
         "picked": torch.equal(got_picks[0].cpu(), want_picks[0]),
         **{key: torch.equal(got[key].cpu(), want[key]) for key in got},
         "whole_decode_picked": torch.equal(got_picks[0].cpu(), whole_picks[0]),
+        "n_valid": int(got["valid"].sum()),
     }
+    if "kpts" in got:
+        out["kpts_max_abs_err"] = (got["kpts"].cpu() - want["kpts"]).abs().max().item()
+    if "mask" in got:
+        edge = (probs[1] - 0.5).abs() <= MASK_EDGE  # the CPU select's probabilities
+        out["mask_pixels_near_the_edge"] = int(edge.sum())
+        out["mask_pixels_differing_off_the_edge"] = int(((got["mask"].cpu() != want["mask"]) & ~edge).sum())
+        out["mask_pixels_set"] = int(want["mask"].sum())
     return out
 
 
@@ -1211,6 +1260,292 @@ def phase_yolo_device(serve, image, pool, rate):
          split_device_ms=split, stages=stages, nms=timing,
          nms_device_ms_per_launch=per_launch, nms_us_per_pick_after_the_first=extra_us)
     return row
+
+
+SEG_FIXTURE = REPO / "tests" / "fixtures" / "synth_pico_segment.msgpack"
+# the yolo_tasks phase's serving configurations, full width (size n), seeded
+# random init: YOLOv8n-seg (15 classes, 32 masks, 160x160 prototypes) and
+# YOLOv8n-pose (17 keypoints, 15 classes) at 640, YOLOv8n-cls (1000 classes)
+# at 224, as ultralytics publishes it
+CLASSIFY_NAMES = [f"class_{i}" for i in range(1000)]
+TASK_CONFIGS = {"segment": dict(task="segment"), "pose": dict(task="pose"),
+                "classify": dict(task="classify", image_size=224, class_names=CLASSIFY_NAMES)}
+# selection on the card's candidates: keypoints (model pixels, visibility)
+# decoded on the card against the CPU, a few float32 ulps of a coordinate
+# near 640 px; masks equal but where the CPU's probability lies within
+# MASK_EDGE of 0.5
+KPTS_ATOL = 1e-3
+MASK_EDGE = 1e-5
+# classify, float32 card against CPU: probabilities of ~1e-3 each (random
+# init, 1000 classes), within this
+PROBS_ATOL = 1e-7
+# the fixtures' quantization budgets (tests/test_yolo_synth.py:100-175)
+DETECT_QUANT_BUDGET = 0.1  # recall and precision, of bf16
+SEG_QUANT_BUDGET = {"recall": 0.12, "mask_iou": 0.1}
+TASK_FPS_WINDOWS = (2, 1.0)  # windows, seconds each
+
+
+@contextlib.contextmanager
+def recording_masks(probs: list):
+    """Record the mask probabilities of each ``compose_masks`` call of
+    ``select``."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo import decode as decode_mod
+
+    real = decode_mod.compose_masks
+
+    def record(*args):
+        result = real(*args)
+        probs.append(result)
+        return result
+
+    decode_mod.compose_masks = record
+    try:
+        yield
+    finally:
+        decode_mod.compose_masks = real
+
+
+@contextlib.contextmanager
+def recording_int8_convs(calls: list):
+    """Record each int8 convolution of a w8a8 forward: (int8 input, the
+    Int8Conv, int32 result)."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo import quant
+
+    real = quant.int8_conv
+
+    def record(xq, conv):
+        acc = real(xq, conv)
+        calls.append((xq, conv, acc))
+        return acc
+
+    quant.int8_conv = record
+    try:
+        yield
+    finally:
+        quant.int8_conv = real
+
+
+def fixture_scores(model, seed: int = 77, n: int = 24, masks: bool = False) -> dict:
+    """Recall, precision (and mean mask IoU) of a fixture model over ``n``
+    synthetic 128 px scenes, as the JAX package's tests score them."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.synth import mask_iou, match_detections, render_scene
+
+    rng = np.random.default_rng(seed)
+    tp = n_gt = n_pred = 0
+    ious = []
+    for _ in range(n):
+        img, boxes, cls, *gt_masks = render_scene(rng, size=128, max_objects=3, with_masks=masks)
+        decoded = {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
+                   for k, v in model.device_decode(img).items()}
+        t, g, p_, pairs = match_detections(decoded, boxes, cls, return_pairs=True)
+        tp, n_gt, n_pred = tp + t, n_gt + g, n_pred + p_
+        if masks:
+            ious += [mask_iou(decoded["mask"][pi], gt_masks[0][gi]) for pi, gi in pairs]
+    out = {"recall": tp / max(n_gt, 1), "precision": tp / max(n_pred, 1), "tp": tp, "n_gt": n_gt,
+           "n_pred": n_pred}
+    if masks:
+        out["mask_iou"] = float(np.mean(ious)) if ious else 0.0
+    return out
+
+
+def serving_timing(serve, image) -> dict:
+    """One serving model on one 1080p frame: event-timed ms per frame, fps
+    over a few windows, device ms (whole, and the letterbox + conv stack
+    alone), kernels per frame, idle share, nms_fixed launches per frame and
+    the bytes of the decode dict's one packed fetch (and of its masks)."""
+    from cuauv_vision_pipeline_tpu_torch.engine.executor import pack_result
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
+
+    decoded = serve.device_decode(image)
+    before = nms_fixed_cuda.launches
+    serve.device_decode(image)
+    nms = nms_fixed_cuda.launches - before
+    wall = cuda_ms(lambda: serve.device_decode(image), 20)
+    whole = profile_fn(lambda: serve.device_decode(image), n=5)
+    heads = profile_fn(lambda: serve.head_outputs(image[None]), n=5)
+    windows, seconds = TASK_FPS_WINDOWS
+    rates = [fps_window(lambda k: serve.device_decode(image), 1, seconds)[0] for _ in range(windows)]
+    return {"ms": wall, "fps": {"median": statistics.median(rates), "min": min(rates), "max": max(rates)},
+            "device_ms": whole["device_ms"], "device_ms_letterbox_and_convs": heads["device_ms"],
+            "device_idle_share": 1 - whole["device_ms"] / wall, "kernels_per_frame": whole["kernels"],
+            "nms_fixed_launches_per_frame": nms, "fetch_bytes": int(pack_result(decoded)[0].numel()),
+            "mask_bytes": int(decoded["mask"].numel()) if "mask" in decoded else 0,
+            "top_device_ms": whole["top_device_ms"]}
+
+
+def entry_card_vs_cpu():
+    """The port's ``entry()`` as a user calls it, on cuda:0 (TF32 off)
+    against ``entry("cpu")``: whether valid and cls are equal, the largest
+    xyxy and score differences, and its nms_fixed launches on the card."""
+    from cuauv_vision_pipeline_tpu_torch.core.device import full_f32
+    from cuauv_vision_pipeline_tpu_torch.entry import entry
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
+
+    fn, args = entry()
+    before = nms_fixed_cuda.launches
+    with full_f32():
+        got = to_cpu(fn(*args))
+    launches = nms_fixed_cuda.launches - before
+    host_fn, host_args = entry("cpu")
+    want = host_fn(*host_args)
+    return {"device": str(args[1].device), "nms_fixed_launches": launches,
+            "valid": torch.equal(got["valid"], want["valid"]), "cls": torch.equal(got["cls"], want["cls"]),
+            "xyxy_max_abs_err": (got["xyxy"] - want["xyxy"]).abs().max().item(),
+            "score_max_abs_err": (got["score"] - want["score"]).abs().max().item(),
+            "n_valid": int(want["valid"].sum())}
+
+
+def phase_yolo_tasks(dev):
+    """The rest of YOLO serving at full width on 1080p ZED frames. (a)
+    YOLOv8n-seg and YOLOv8n-pose in float32 on the card (TF32 off) against
+    the CPU: head maps (the prototypes too) within HEADS_ATOL, TF32 on
+    failing it; the card's maps decoded on both devices, selection exact on
+    the card's candidates, keypoints within KPTS_ATOL, masks equal but
+    within MASK_EDGE of 0.5. (b) The trained segment fixture in bf16 on the
+    card over 16 scenes: recall >= 0.7, precision >= 0.55, mask IoU >= 0.7.
+    (c) int8 and w8a8: every int8 convolution of one w8a8 forward of
+    YOLOv8n-seg and YOLOv8n-obb exact against its plain version (on the
+    CPU); the detect fixture's recall and precision within 0.1 of bf16, the
+    segment fixture's recall within 0.12 and mask IoU within 0.1. (d)
+    YOLOv8n-cls in float32, card against CPU: probabilities within
+    PROBS_ATOL, the top 5 equal; ``entry()`` on cuda:0 against
+    ``entry("cpu")`` (:func:`entry_card_vs_cpu`): valid and cls equal, xyxy
+    and score within CANDIDATE_ATOL, one nms_fixed launch. (e) Per serving
+    model (bf16: seg, pose, cls; YOLOv8n-obb int8 and w8a8):
+    :func:`serving_timing`."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo import quant
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.predictor import YoloModel
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
+
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.synth import render_scene
+
+    out, failures, seconds = {}, [], {}
+    t0 = time.monotonic()
+    frame = zed_frames(1)[0]
+    card_image = torch.from_numpy(frame).to(dev)
+    seg_kw = dict(image_size=128, max_det=8, conf_thresh=0.25)
+    rng = np.random.default_rng(77)
+    seg_scenes = {f"scene_{i}": render_scene(rng, size=128, max_objects=3)[0] for i in range(4)}
+    # random init's mask logits are ~0 (every set pixel lies within
+    # MASK_EDGE of 0.5), so the trained fixture holds the masks
+    for name, weight, kw, kind, inputs in (
+        ("segment", None, TASK_CONFIGS["segment"], "random_init", {"zed_1080p": frame}),
+        ("pose", None, TASK_CONFIGS["pose"], "random_init", {"zed_1080p": frame}),
+        ("segment_fixture", str(SEG_FIXTURE), seg_kw, "fixture", seg_scenes),
+    ):
+        card = YoloModel(weight, half_precision=False, device=dev, **kw)
+        host = YoloModel(weight, half_precision=False, device="cpu", **kw)
+        for input_name, img in inputs.items():
+            case = f"{name}_{input_name}"
+            image = torch.from_numpy(img)
+            want_heads = host.head_outputs(image[None])
+            card_heads = card.head_outputs(image.to(dev)[None])
+            row = {"heads_max_abs_err": heads_err(card_heads, want_heads)}
+            if input_name in ("zed_1080p", "scene_0"):
+                with tf32_allowed():
+                    row["tf32_on_heads_max_abs_err"] = heads_err(card.head_outputs(image.to(dev)[None]), want_heads)
+                if not row["tf32_on_heads_max_abs_err"] > HEADS_ATOL[kind]:
+                    failures.append(f"{case}: TF32 on stays within {HEADS_ATOL[kind]}")
+            both = row["card_maps_decoded_on_cpu"] = decode_card_and_cpu(card, card_heads)
+            if not row["heads_max_abs_err"] <= HEADS_ATOL[kind]:
+                failures.append(f"{case}: head maps differ past {HEADS_ATOL[kind]}")
+            failures += [f"{case}: card candidates selected on the CPU: {key} differs"
+                         for key in ("valid", "cls", "picked", "score", "xyxy") if not both[key]]
+            failures += [f"{case}: card maps: {key} {both[key]} past {limit}"
+                         for key, limit in CANDIDATE_ATOL.items() if not both[key] <= limit]
+            if "kpts_max_abs_err" in both and not both["kpts_max_abs_err"] <= KPTS_ATOL:
+                failures.append(f"{case}: keypoints differ by {both['kpts_max_abs_err']} past {KPTS_ATOL}")
+            if both.get("mask_pixels_differing_off_the_edge"):
+                failures.append(f"{case}: {both['mask_pixels_differing_off_the_edge']} mask pixels differ")
+            if kind == "fixture" and not both["whole_decode_picked"]:
+                failures.append(f"{case}: card maps decoded on the CPU pick otherwise")
+            out[f"f32_card_vs_cpu_{case}"] = row
+        if not any(out[f"f32_card_vs_cpu_{name}_{i}"]["card_maps_decoded_on_cpu"]["n_valid"] for i in inputs):
+            failures.append(f"{name}: nothing decoded")
+    if not sum(out[f"f32_card_vs_cpu_segment_fixture_{i}"]["card_maps_decoded_on_cpu"]["mask_pixels_set"]
+               for i in seg_scenes):
+        failures.append("segment fixture: no mask pixel set")
+
+    card = YoloModel(None, half_precision=False, device=dev, **TASK_CONFIGS["classify"])
+    host = YoloModel(None, half_precision=False, device="cpu", **TASK_CONFIGS["classify"])
+    got, want = card.device_decode(card_image)["probs"].cpu(), host.device_decode(frame)["probs"]
+    top5 = [e["class"] for e in card.summarize_decoded({"probs": got.numpy()}, frame.shape[:2])]
+    out["f32_card_vs_cpu_classify"] = {
+        "probs_max_abs_err": (got - want).abs().max().item(), "top5": top5,
+        "top5_equal": top5 == [e["class"] for e in host.summarize_decoded({"probs": want.numpy()}, frame.shape[:2])],
+        "top1_prob": got.max().item(), "probs_sum": got.sum().item()}
+    if not (out["f32_card_vs_cpu_classify"]["probs_max_abs_err"] <= PROBS_ATOL
+            and out["f32_card_vs_cpu_classify"]["top5_equal"]):
+        failures.append(f"classify card vs CPU: {out['f32_card_vs_cpu_classify']}")
+    row = out["entry_card_vs_cpu"] = entry_card_vs_cpu()
+    if not (row["valid"] and row["cls"] and row["nms_fixed_launches"] == 1 and row["n_valid"]
+            and row["xyxy_max_abs_err"] <= CANDIDATE_ATOL["box_max_abs_err"]
+            and row["score_max_abs_err"] <= CANDIDATE_ATOL["score_max_abs_err"]):
+        failures.append(f"entry() card vs CPU: {row}")
+    if failures:
+        emit("yolo_tasks_f32", **out)
+        raise AssertionError("yolo_tasks f32 card vs CPU: " + "; ".join(failures))
+
+    seconds["f32_card_vs_cpu"] = time.monotonic() - t0
+    # (b) + (c): the fixtures in bf16 and the quantized modes
+    fixtures = {}
+    for mode in (None, "int8", "w8a8"):
+        fixtures[f"segment_{mode or 'bf16'}"] = fixture_scores(
+            YoloModel(str(SEG_FIXTURE), quantize=mode, device=dev, **seg_kw), n=16, masks=True)
+        fixtures[f"detect_{mode or 'bf16'}"] = fixture_scores(
+            YoloModel(str(YOLO_FIXTURE), quantize=mode, device=dev, **seg_kw))
+    out["fixtures"] = fixtures
+    seg, det = fixtures["segment_bf16"], fixtures["detect_bf16"]
+    if not (seg["recall"] >= 0.7 and seg["precision"] >= 0.55 and seg["mask_iou"] >= 0.7):
+        failures.append(f"segment fixture in bf16: {seg}")
+    for mode in ("int8", "w8a8"):
+        q = fixtures[f"detect_{mode}"]
+        if not (q["recall"] >= det["recall"] - DETECT_QUANT_BUDGET
+                and q["precision"] >= det["precision"] - DETECT_QUANT_BUDGET):
+            failures.append(f"detect fixture {mode}: {q} against bf16 {det}")
+        q = fixtures[f"segment_{mode}"]
+        if not (q["recall"] >= seg["recall"] - SEG_QUANT_BUDGET["recall"]
+                and q["mask_iou"] >= seg["mask_iou"] - SEG_QUANT_BUDGET["mask_iou"]):
+            failures.append(f"segment fixture {mode}: {q} against bf16 {seg}")
+
+    seconds["fixtures"] = time.monotonic() - t0 - sum(seconds.values())
+    exact = {}
+    for task in ("segment", "obb"):
+        model = YoloModel(None, task=task, quantize="w8a8", device=dev)
+        calls: list = []
+        with recording_int8_convs(calls):
+            model.device_decode(card_image)
+        torch.cuda.synchronize()
+        equal = [torch.equal(acc.cpu(), quant.int8_conv_plain(xq.cpu(), conv.wq.cpu(), conv.stride, conv.padding))
+                 for xq, conv, acc in calls]
+        n_conv = sum(isinstance(m, torch.nn.Conv2d) for m in model.model.modules())
+        exact[task] = {"int8_convs": len(calls), "convs_in_model": n_conv, "exact": sum(equal),
+                       "k_padded": sum(c.wmat.shape[1] != c.wq[0].numel() for _, c, _ in calls),
+                       "n_padded": sum(c.wmat.shape[0] != c.wq.shape[0] for _, c, _ in calls)}
+        if not (len(calls) == n_conv and all(equal)):
+            failures.append(f"w8a8 {task}: {exact[task]}")
+    out["w8a8_convs_exact_against_plain"] = exact
+    seconds["w8a8_exact"] = time.monotonic() - t0 - sum(seconds.values())
+    if failures:
+        emit("yolo_tasks_quant", **out)
+        raise AssertionError("yolo_tasks: " + "; ".join(failures))
+
+    # (e) the serving models' times per 1080p frame, and nms_fixed on the
+    # pose and segment paths
+    timing = {}
+    for name, kw in (("segment_bf16", TASK_CONFIGS["segment"]), ("pose_bf16", TASK_CONFIGS["pose"]),
+                     ("classify_bf16", TASK_CONFIGS["classify"]), ("obb_int8", dict(task="obb", quantize="int8")),
+                     ("obb_w8a8", dict(task="obb", quantize="w8a8"))):
+        before = nms_fixed_cuda.launches
+        timing[name] = serving_timing(YoloModel(None, device=dev, **kw), card_image)
+        timing[name]["nms_fixed_launches"] = nms_fixed_cuda.launches - before
+    out["serving"] = timing
+    seconds["serving"] = time.monotonic() - t0 - sum(seconds.values())
+    out["seconds"] = seconds
+    for name in ("segment_bf16", "pose_bf16"):
+        if not timing[name]["nms_fixed_launches"] > 0:
+            raise AssertionError(f"nms_fixed was not launched on the {name} path")
+    emit("yolo_tasks", **out)
 
 
 def bins_plate(t: float):
@@ -1883,7 +2218,8 @@ def phase_module(run_id: str):
     # groups (set in main)
     direction = f"smoke_{run_id}"
     bins_direction = f"{direction}_bins"
-    dirs = {name: f"{direction}_{name}" for name in ("buoy", "imgdir", "stereo", "mczed", "mcflir", "gate", "precam")}
+    dirs = {name: f"{direction}_{name}"
+            for name in ("buoy", "imgdir", "stereo", "mczed", "mcflir", "gate", "precam", "segcam", "replay")}
     import cv2
 
     from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
@@ -1904,6 +2240,10 @@ def phase_module(run_id: str):
     stereo = shm.define_group("red_buoy_stereo_results", RESULTS_SCHEMA)
     gate = shm.yolo_gate
     calib = shm.camera_calibration
+    mission = shm.active_mission
+    # the recorder's directory, relative to the checkout (the modules' cwd):
+    # the mission group's log_path is a 64-byte string field
+    record_dir = f"smoke_logs/rec_{run_id[:8]}"
     module_name = f"BuoyLAB-on-{direction}"
     procs = []
     stopped = set()  # names of processes stopped on purpose
@@ -2114,13 +2454,21 @@ def phase_module(run_id: str):
         assert out["imgdir_launches"]["label_cuda"] > 0 and out["gate_yolo_launches"]["nms_fixed"] > 0, out
 
         # wave 4: the gate module in localize mode on the same gate camera
-        # (host only: stand-in shark and saw OBBs through GateOBB); beside
-        # it BASELINE config 4 as the JAX bench runs it (bench.py:2055-2105):
+        # (host only: stand-in shark and saw OBBs through GateOBB), and
+        # config 2's record leg on it (bench.py:1869-1990): modules.record
+        # --mono, mission active, writes an mp4 of the gate scene; the
+        # segment fixture through modules.yolo on a camera of its own; beside
+        # them BASELINE config 4 as the JAX bench runs it (bench.py:2055-2105):
         # a 1280x720 camera of 8 precomputed frames at 30 fps feeding the
         # preprocessor, color_balance and auto_calibrate
         gate.set(shark_visible=0, saw_visible=0, shark_area=0.0, saw_area=0.0)
         calib.set(exposure=50.0)
+        status.set(frames=0, latency_ms=0.0)
+        mission.log_path.set(record_dir)
+        mission.active.set(True)
         start(["cuauv_vision_pipeline_tpu_torch.modules.gate", dirs["gate"]], "gate_module", CUAUV_GATE_LOCALIZE="1")
+        start(["cuauv_vision_pipeline_tpu_torch.modules.record", "--mono", dirs["gate"], "--fps", "30"], "record")
+        synthetic(dirs["segcam"], "zed", "segcam_source", "--width", "1280", "--height", "720", "--fps", "30")
         synthetic(dirs["precam"], "buoy", "precam_source", "--width", "1280", "--height", "720", "--fps", "30",
                   "--precompute", "8")
         config4 = {"preprocessor": "Preprocessor", "color_balance": "ColorBalance", "auto_calibrate": "AutoCalibrate"}
@@ -2133,6 +2481,9 @@ def phase_module(run_id: str):
                                                                    "shark_area", "saw_visible", "saw_area")}
         out["gate_module_posts"] = posts_of(f"GateDetector-on-{dirs['gate']}")
         assert "gate handler" in out["gate_module_posts"], out["gate_module_posts"]
+        # now that shm.yolo_gate is read: its GateOBB handler writes that group too
+        start(["cuauv_vision_pipeline_tpu_torch.modules.yolo", dirs["segcam"]], "seg_yolo",
+              CUAUV_YOLO_WEIGHT=str(SEG_FIXTURE))
         # config 4: each module's posts through the ModuleReader, three or
         # more of each; auto_calibrate moves the exposure off its default
         seen, readers = {}, []
@@ -2154,9 +2505,52 @@ def phase_module(run_id: str):
         g = calib.get()
         out["config4_camera_calibration"] = {k: getattr(g, k) for k in ("exposure", "red_gain", "green_gain",
                                                                           "blue_gain")}
-        launches = stop(("gate_module", *config4), ("gate_source", "precam_source"))
+        # the segment checkpoint served by modules.yolo: frames advance, its posts appear
+        wait_for(lambda: status.frames.get() >= 3, 180, "the segment module's results")
+        out["seg_yolo_frames"], latencies = samples(status.frames.get, status.latency_ms.get,
+                                                    what="segment yolo_status.frames")
+        out["seg_yolo_latency_ms"] = spread(latencies)
+        out["seg_yolo_posts"] = posts_of(f"Yolo-on-{dirs['segcam']}")
+        assert len(out["seg_yolo_posts"]) >= 7, out["seg_yolo_posts"]
+        # the recording: mission off once the clip has grown, so the
+        # recorder closes the file before it is replayed
+        clips = lambda: sorted((REPO / record_dir).glob("record-mono-*.mp4"))  # noqa: E731
+        wait_for(lambda: clips() and clips()[0].stat().st_size > 200_000, 90, "the recorded gate clip")
+        mission.active.set(False)
+        time.sleep(2.0)  # the recorder closes the file at its next frame
+        launches = stop(("gate_module", "record", "seg_yolo", *config4), ("gate_source", "precam_source",
+                                                                         "segcam_source"))
         out["gate_module_launches"] = launches["gate_module"]
         out["config4_launch_counts"] = {name: launches[name] for name in config4}
+        out["seg_yolo_launches"] = launches["seg_yolo"]
+        assert out["seg_yolo_launches"]["nms_fixed"] > 0, out["seg_yolo_launches"]
+        clip = clips()[0]
+        out["recorded_clip"] = {"bytes": clip.stat().st_size, "frames": int(cv2.VideoCapture(str(clip)).get(
+            cv2.CAP_PROP_FRAME_COUNT))}
+
+        # wave 5: config 2's replay leg: capture_sources.video replays the
+        # clip -> modules.yolo with the gate checkpoint -> GateOBB ->
+        # shm.yolo_gate reports shark and saw
+        gate.set(shark_visible=0, saw_visible=0)
+        status.set(frames=0, latency_ms=0.0)
+        start(["cuauv_vision_pipeline_tpu_torch.capture_sources.video", f"{clip}:{dirs['replay']}", "--loop"],
+              "replay_source")
+        start(["cuauv_vision_pipeline_tpu_torch.modules.yolo", dirs["replay"]], "replay_yolo",
+              CUAUV_YOLO_WEIGHT=str(GATE_FIXTURE))
+        wait_for(lambda: gate.shark_visible.get() and gate.saw_visible.get(), 180,
+                 "shark and saw in shm.yolo_gate from the replayed clip")
+        out["replay_frames"], readings = samples(
+            status.frames.get, lambda: (status.latency_ms.get(), gate.get()), what="replay yolo_status.frames")
+        out["replay_latency_ms"] = spread([lat for lat, _ in readings])
+        out["replay_yolo_gate"] = {
+            "shark_visible": sum(bool(g.shark_visible) for _, g in readings),
+            "saw_visible": sum(bool(g.saw_visible) for _, g in readings), "samples": len(readings),
+            "shark_confidence_median": statistics.median(g.shark_confidence for _, g in readings),
+            "saw_confidence_median": statistics.median(g.saw_confidence for _, g in readings)}
+        assert out["replay_yolo_gate"]["shark_visible"] and out["replay_yolo_gate"]["saw_visible"], out
+        launches = stop(("replay_yolo",), ("replay_source",))
+        out["replay_yolo_launches"] = launches["replay_yolo"]
+        assert out["replay_yolo_launches"]["nms_fixed"] > 0, out["replay_yolo_launches"]
     finally:
         for p, log, _ in procs:
             if p.poll() is None:
@@ -2168,6 +2562,7 @@ def phase_module(run_id: str):
                     p.wait()
             log.close()
         shutil.rmtree(image_dir, ignore_errors=True)
+        shutil.rmtree(REPO / record_dir, ignore_errors=True)
         # what a process left behind, and the groups: all named for this run
         left = [*Path(BLOCK_STUB).parent.glob(Path(BLOCK_STUB).name + f"*{direction}*"),
                 *Path(shm.group_path("*")).parent.glob(Path(shm.group_path("*")).name)]
@@ -2232,7 +2627,8 @@ def main() -> int:
     # the main path, path by path: the counts set to 0 just before each path
     # and read just after it; every kernel of a path must have launched
     path_kernels = {"red_buoy": ("label_cuda", "label_cuda_batched", "fused_morph"),
-                    "yolo": ("nms_fixed",), "bins": ("fused_morph", "spacing_select"),
+                    "yolo": ("nms_fixed",), "yolo_tasks": ("nms_fixed",),
+                    "bins": ("fused_morph", "spacing_select"),
                     "stereo": ("label_cuda_batched", "fused_morph"), "multicam": ("nms_fixed",),
                     "correction": ()}
     counts = dict.fromkeys(launch_counts(), 0)
@@ -2249,6 +2645,7 @@ def main() -> int:
 
     run_path("red_buoy", lambda: phase_chain(dev, frames))
     serve, image, pool = run_path("yolo", lambda: phase_yolo(dev))
+    run_path("yolo_tasks", lambda: phase_yolo_tasks(dev))
     card, bins_image, bins_wall_ms = run_path("bins", lambda: phase_bins(dev))
     stereo_in, stereo_wall_ms = run_path("stereo", lambda: phase_stereo(dev))
     multicam = run_path("multicam", lambda: phase_multicam(dev))

@@ -1,10 +1,12 @@
 """Detection decode + greedy NMS on the model's device.
 
-Port of ``cuauv_vision_pipeline_tpu.models.yolo.decode`` for the detect and
-obb heads: DFL expectation, anchor offsets (and ultralytics' dist2rbox for
-obb), score threshold, the top-``nms_pool`` candidate pool and class-aware
-greedy NMS with fixed-size outputs. Every function takes a leading batch
-axis ``[B, ...]`` (the JAX package decodes one image and vmaps).
+Port of ``cuauv_vision_pipeline_tpu.models.yolo.decode``: DFL expectation,
+anchor offsets (and ultralytics' dist2rbox for obb), score threshold, the
+top-``nms_pool`` candidate pool and class-aware greedy NMS with fixed-size
+outputs, then the winners' keypoints (pose) and instance masks (segment:
+prototypes combined by their coefficients, cropped to the box, thresholded
+to u8 on the device). Every function takes a leading batch axis ``[B, ...]``
+(the JAX package decodes one image and vmaps).
 
 On CUDA tensors :func:`decode` runs the NMS loop as one hand-written kernel
 (``ops.cuda.nms_kernel.nms_fixed_cuda``); CPU tensors take its plain
@@ -54,11 +56,28 @@ def _flatten_scales(outputs: Dict[str, List[torch.Tensor]]) -> Dict[str, torch.T
     centers and strides."""
     shapes = tuple((bm.shape[1], bm.shape[2]) for bm in outputs["box"])
     out = {}
-    for key in ("box", "cls", "angle"):
+    for key in ("box", "cls", "angle", "kpts", "mcoef"):
         if key in outputs:
             out[key] = torch.cat([m.reshape(m.shape[0], -1, m.shape[-1]) for m in outputs[key]], 1)
     out["centers"], out["strides"] = _anchors(shapes, out["box"].device)
     return out
+
+
+def compose_masks(proto: torch.Tensor, coefs: torch.Tensor, boxes_xyxy: torch.Tensor,
+                  image_size: int) -> torch.Tensor:
+    """Instance mask probabilities ``[B, M, Hp, Wp]`` from prototypes ``[B,
+    Hp, Wp, nm]`` and each detection's coefficients ``[B, M, nm]``:
+    sigmoid(proto . coefs), zeroed outside the detection's box (model-input
+    xyxy, rescaled onto the prototype grid; right and bottom edges
+    exclusive, as ultralytics' crop_mask)."""
+    hp, wp = proto.shape[1], proto.shape[2]
+    masks = torch.sigmoid(torch.einsum("bhwc,bmc->bmhw", proto, coefs))
+    sx, sy = wp / float(image_size), hp / float(image_size)
+    x1, y1, x2, y2 = (boxes_xyxy[..., i, None, None] * s for i, s in enumerate((sx, sy, sx, sy)))
+    cols = torch.arange(wp, dtype=torch.float32, device=proto.device)
+    rows = torch.arange(hp, dtype=torch.float32, device=proto.device)[:, None]
+    inside = (cols >= x1) & (cols < x2) & (rows >= y1) & (rows < y2)
+    return masks * inside.to(masks.dtype)
 
 
 def _dfl_expectation(box_logits: torch.Tensor, reg_max: int) -> torch.Tensor:
@@ -106,14 +125,23 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def candidates(outputs: Dict[str, List[torch.Tensor]], reg_max: int = 16, conf_thresh: float = 0.25):
     """Raw head outputs -> every anchor's (boxes xyxy [B, N, 4], angles [B,
     N] or None, scores [B, N] zeroed below ``conf_thresh``, classes [B,
-    N]): the elementwise half of :func:`decode`."""
+    N], extras): the elementwise half of :func:`decode`. ``extras`` holds
+    what :func:`select` decodes for the winners only: the raw keypoints
+    ``kpts`` [B, N, 3*nk] with the anchors' ``centers`` and ``strides``
+    (pose), the mask coefficients ``mcoef`` [B, N, nm] and ``proto``
+    (segment)."""
     flat = _flatten_scales(outputs)
     boxes_xyxy, angle = decode_boxes(flat, reg_max)
     # sigmoid is monotonic: the max over logits picks the class
     best_logit, classes = flat["cls"].max(-1)
     scores = torch.sigmoid(best_logit)
     scores = torch.where(scores >= conf_thresh, scores, 0.0)
-    return boxes_xyxy, angle, scores, classes
+    extras = {}
+    if "kpts" in flat:
+        extras.update(kpts=flat["kpts"], centers=flat["centers"], strides=flat["strides"])
+    if "mcoef" in flat and "proto" in outputs:
+        extras.update(mcoef=flat["mcoef"], proto=outputs["proto"])
+    return boxes_xyxy, angle, scores, classes, extras
 
 
 def select(
@@ -121,13 +149,15 @@ def select(
     angle,
     scores: torch.Tensor,
     classes: torch.Tensor,
+    extras: Dict[str, torch.Tensor],
     image_size: int,
     iou_thresh: float = 0.45,
     max_det: int = 32,
     nms_pool: int = 512,
 ) -> Dict[str, torch.Tensor]:
     """:func:`candidates` -> the fixed-size detections of :func:`decode`:
-    the top-``nms_pool`` pool, greedy NMS and the gathers."""
+    the top-``nms_pool`` pool, greedy NMS and the gathers, then the
+    winners' keypoints and masks."""
     scores, top_idx = _top_pool(scores, min(nms_pool, scores.shape[1]))
     boxes_xyxy = _take(boxes_xyxy, top_idx).contiguous()
     classes = _take(classes, top_idx).to(torch.int32).contiguous()
@@ -146,6 +176,21 @@ def select(
         out["xyxy"] = torch.clamp(out["xyxy"], 0.0, float(image_size))
     else:
         out["angle"] = _take(angle, safe)
+    if extras:
+        orig = top_idx.gather(1, safe)  # the winners' anchor indices
+    if "kpts" in extras:
+        # gather the max_det winners first, then decode only their keypoints
+        k = _take(extras["kpts"], orig)
+        k = k.reshape(*k.shape[:2], -1, 3)
+        centers, strides = extras["centers"][orig], extras["strides"][orig][..., None]
+        kx = (k[..., 0] * 2.0) * strides + (centers[..., 0:1] - 0.5 * strides)
+        ky = (k[..., 1] * 2.0) * strides + (centers[..., 1:2] - 0.5 * strides)
+        out["kpts"] = torch.stack([kx, ky, torch.sigmoid(k[..., 2])], -1)
+    if "mcoef" in extras:
+        masks = compose_masks(extras["proto"], _take(extras["mcoef"], orig), out["xyxy"], image_size)
+        # thresholded on the device (0.5 on probabilities is ultralytics'
+        # .gt_(0) on logits) and fetched as u8; invalid slots are zero
+        out["mask"] = ((masks >= 0.5) & valid[..., None, None]).to(torch.uint8)
     return out
 
 
@@ -160,9 +205,10 @@ def decode(
 ) -> Dict[str, torch.Tensor]:
     """Decode raw head outputs (per-scale NHWC maps, float32) into
     fixed-size detections: ``xyxy`` [B, max_det, 4], ``score``, ``cls``,
-    ``valid`` [B, max_det], and ``angle`` for obb. Coordinates are model
-    input pixels; axis-aligned boxes are clipped to [0, image_size] after
-    NMS, rotated ones are not.
+    ``valid`` [B, max_det], and ``angle`` (obb), ``kpts`` [B, max_det, nk,
+    3] (x, y, visibility; pose) or ``mask`` [B, max_det, S/4, S/4] u8
+    (segment). Coordinates are model input pixels; axis-aligned boxes are
+    clipped to [0, image_size] after NMS, rotated ones are not.
 
     ``nms_pool``: NMS runs over the top-``nms_pool`` candidates by score
     (exact while the above-``conf_thresh`` candidates fit in the pool, as
@@ -194,11 +240,19 @@ def summarize(
     task: str = "detect",
     pad: Tuple[float, float] = (0.0, 0.0),
     clip_wh: Tuple[float, float] = None,
+    image_size: int = None,
 ) -> List[Dict]:
     """One image's decoded detections (numpy) -> ultralytics
     Results.summary()-style dicts, the format MAP_FN parses. Coordinates map
     back to the original frame as (v - pad) * scale; clip_wh=(w, h) clamps
-    detect boxes to the frame; rotated OBB corners are never clipped."""
+    detect boxes and pose keypoints to the frame; rotated OBB corners are
+    never clipped. Pose entries carry ``keypoints: {x, y, visible}``;
+    segment entries (which need ``image_size``, the model input square)
+    carry ``segments: {x, y}``, the largest external polygon of the mask,
+    traced on the prototype grid and mapped through pixel centers to the
+    frame."""
+    if task == "segment":
+        from ...utils.contours import contour_area, find_contours
     results = []
     valid = np.asarray(decoded["valid"])
     xyxy = np.asarray(decoded["xyxy"])
@@ -235,5 +289,24 @@ def summarize(
                 "x1": float(_cx(xyxy[i, 0])), "y1": float(_cy(xyxy[i, 1])),
                 "x2": float(_cx(xyxy[i, 2])), "y2": float(_cy(xyxy[i, 3])),
             }
+        if task == "pose" and "kpts" in decoded:
+            k = np.asarray(decoded["kpts"])[i]
+            entry["keypoints"] = {
+                "x": [float(_cx(v)) for v in k[:, 0]],
+                "y": [float(_cy(v)) for v in k[:, 1]],
+                "visible": [float(v) for v in k[:, 2]],
+            }
+        if task == "segment" and "mask" in decoded and image_size:
+            mask = np.asarray(decoded["mask"])[i] >= 0.5
+            factor = float(image_size) / mask.shape[0]  # mask pixel -> model pixels
+            polys = find_contours(mask.astype(np.uint8))
+            if polys:
+                poly = max(polys, key=contour_area).reshape(-1, 2)
+                entry["segments"] = {
+                    "x": [float(_cx(v)) for v in (poly[:, 0] + 0.5) * factor],
+                    "y": [float(_cy(v)) for v in (poly[:, 1] + 0.5) * factor],
+                }
+            else:
+                entry["segments"] = {"x": [], "y": []}
         results.append(entry)
     return results

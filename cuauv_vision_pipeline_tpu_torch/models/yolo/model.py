@@ -1,8 +1,10 @@
-"""YOLOv8-family architecture as torch ``nn.Module``s (detect and obb heads).
+"""YOLOv8-family architecture as torch ``nn.Module``s (all five tasks).
 
 Port of ``cuauv_vision_pipeline_tpu.models.yolo.model``: CSP backbone
 (Conv-BN-SiLU + C2f blocks + SPPF), PAN neck and the decoupled per-scale
-heads, at the ultralytics n/s/m width-depth multiples. Parameter names are
+heads (detect, obb, pose, segment with its ``Proto`` prototype head), and
+the classify model (backbone to the P5 C2f, then ultralytics' Classify
+head), at the ultralytics n/s/m width-depth multiples. Parameter names are
 ultralytics' own (``model.<yaml index>.cv1.conv.weight``, ...), so one
 naming serves the carry-over of the JAX package's flax parameters
 (weights.params_from_flax), ``.pt`` import and export.
@@ -13,14 +15,16 @@ anchors in the JAX package's order (row-major H, then W).
 
 ``YOLO.fuse_`` folds each BatchNorm into its convolution for inference
 (one conv with bias + SiLU per layer instead of conv, BN, SiLU); the fold is
-computed in float32 and then cast to the serving dtype.
+computed in float32 and then cast to the serving dtype. The quantized
+serving modes (``quant.py``) hook in through ``ConvBnSilu.qconv`` and
+``PlainConv.qconv``.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,8 +41,10 @@ SIZES = {
     "l": (1.0, 1.00, 512),
     "x": (1.0, 1.25, 512),
 }
-TASKS = ("detect", "obb")
+TASKS = ("detect", "obb", "pose", "segment", "classify")
 BN_EPS = 1e-3
+# ultralytics Classify head's fixed embedding width (not width-scaled)
+CLASSIFY_EMBED = 1280
 
 
 def _make_divisible(x: float, divisor: int = 8) -> int:
@@ -69,8 +75,15 @@ class ConvBnSilu(nn.Module):
         self.bn = BatchNorm(c_out)
         # (weight, bias) with the BatchNorm folded in; set by YOLO.fuse_
         self.fused: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        # w8a8 (quant.w8a8_): the int8 conv, and the BatchNorm as a
+        # per-channel affine (mean, multiplier, shift) in the activation dtype
+        self.qconv: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+        self.bn_affine: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.qconv is not None:
+            mean, mul, shift = self.bn_affine
+            return F.silu((self.qconv(x) - mean) * mul + shift)
         if self.fused is not None:
             w, b = self.fused
             return F.silu(F.conv2d(x, w, b, self.conv.stride, self.conv.padding))
@@ -135,50 +148,106 @@ def _upsample2(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+class PlainConv(nn.Conv2d):
+    """A head's output conv (1x1, with bias); ``qconv`` (quant.w8a8_)
+    replaces it by the int8 conv."""
+
+    qconv: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.qconv(x) if self.qconv is not None else super().forward(x)
+
+
 def _branch(c_in: int, c_mid: int, c_out: int) -> nn.Sequential:
     return nn.Sequential(ConvBnSilu(c_in, c_mid, 3), ConvBnSilu(c_mid, c_mid, 3),
-                         nn.Conv2d(c_mid, c_out, 1))
+                         PlainConv(c_mid, c_out, 1))
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1)
+
+
+class Proto(nn.Module):
+    """Mask prototype head (ultralytics v8 Segment's Proto): Conv 3x3 ->
+    2x ConvTranspose upsample -> Conv 3x3 -> Conv 1x1 to ``num_masks``
+    maps at 1/4 of the model resolution, from the P3 feature."""
+
+    def __init__(self, c_in: int, c_mid: int, num_masks: int):
+        super().__init__()
+        self.cv1 = ConvBnSilu(c_in, c_mid, 3)
+        self.upsample = nn.ConvTranspose2d(c_mid, c_mid, 2, 2, 0, bias=True)
+        self.cv2 = ConvBnSilu(c_mid, c_mid, 3)
+        self.cv3 = ConvBnSilu(c_mid, num_masks, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
 
 
 class Head(nn.Module):
-    """ultralytics v8 Detect/OBB head: ``cv2`` box (DFL logits), ``cv3``
-    classes, ``cv4`` angle (obb), one branch per scale; branch widths as
-    ultralytics', so real checkpoints map tensor for tensor."""
+    """ultralytics v8 Detect/OBB/Pose/Segment head: ``cv2`` box (DFL
+    logits), ``cv3`` classes, ``cv4`` angle (obb), keypoints (pose) or mask
+    coefficients (segment), one branch per scale, and segment's ``proto``;
+    branch widths as ultralytics', so real checkpoints map tensor for
+    tensor."""
 
-    def __init__(self, chans: Tuple[int, int, int], num_classes: int, task: str, reg_max: int):
+    def __init__(self, chans: Tuple[int, int, int], num_classes: int, task: str, reg_max: int,
+                 num_keypoints: int = 17, num_masks: int = 32):
         super().__init__()
         c0 = chans[0]
         box_ch = max(16, c0 // 4, 4 * reg_max)
         cls_ch = max(c0, min(num_classes, 100))
         self.cv2 = nn.ModuleList(_branch(c, box_ch, 4 * reg_max) for c in chans)
         self.cv3 = nn.ModuleList(_branch(c, cls_ch, num_classes) for c in chans)
-        self.cv4 = (nn.ModuleList(_branch(c, max(c0 // 4, 1), 1) for c in chans)
-                    if task == "obb" else None)
+        # (width, output channels, output key) of the task's extra branch
+        extra = {"obb": (max(c0 // 4, 1), 1, "angle"),
+                 "pose": (max(c0 // 4, 3 * num_keypoints), 3 * num_keypoints, "kpts"),
+                 "segment": (max(c0 // 4, num_masks), num_masks, "mcoef")}.get(task)
+        self.cv4 = (nn.ModuleList(_branch(c, extra[0], extra[1]) for c in chans)
+                    if extra else None)
+        self.cv4_key = extra[2] if extra else None
+        # prototype width: ultralytics' npr 256, width-scaled like any channel count
+        self.proto = Proto(c0, c0, num_masks) if task == "segment" else None
 
-    def forward(self, feats: List[torch.Tensor]) -> Dict[str, List[torch.Tensor]]:
-        def nhwc(t: torch.Tensor) -> torch.Tensor:
-            return t.permute(0, 2, 3, 1)
-
-        out = {"box": [nhwc(b(f)) for b, f in zip(self.cv2, feats)],
-               "cls": [nhwc(c(f)) for c, f in zip(self.cv3, feats)]}
+    def forward(self, feats: List[torch.Tensor]) -> Dict[str, Union[List[torch.Tensor], torch.Tensor]]:
+        out = {"box": [_nhwc(b(f)) for b, f in zip(self.cv2, feats)],
+               "cls": [_nhwc(c(f)) for c, f in zip(self.cv3, feats)]}
         if self.cv4 is not None:
-            out["angle"] = [nhwc(a(f)) for a, f in zip(self.cv4, feats)]
+            out[self.cv4_key] = [_nhwc(a(f)) for a, f in zip(self.cv4, feats)]
+        if self.proto is not None:
+            out["proto"] = _nhwc(self.proto(feats[0]))
         return out
 
 
+class Classify(nn.Module):
+    """ultralytics Classify head: 1x1 conv to ``CLASSIFY_EMBED``, global
+    average pool, linear classifier (raw logits)."""
+
+    def __init__(self, c_in: int, num_classes: int):
+        super().__init__()
+        self.conv = ConvBnSilu(c_in, CLASSIFY_EMBED, 1)
+        self.linear = nn.Linear(CLASSIFY_EMBED, num_classes)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"logits": self.linear(self.conv(x).mean((2, 3)))}
+
+
 class YOLO(nn.Module):
-    """Backbone + PAN neck + per-scale heads (detect or obb).
+    """Backbone + PAN neck + per-scale heads, or the classify model.
 
     ``forward(x [B, 3, S, S])`` returns per-scale NHWC maps at strides
     (8, 16, 32): ``box`` [B, H, W, 4*reg_max] DFL logits, ``cls`` [B, H, W,
-    num_classes] and, for obb, ``angle`` [B, H, W, 1]."""
+    num_classes], and ``angle`` [B, H, W, 1] (obb), ``kpts`` [B, H, W,
+    3*num_keypoints] (pose) or ``mcoef`` [B, H, W, num_masks] (segment);
+    segment adds one ``proto`` [B, S/4, S/4, num_masks]. Classify returns
+    ``{"logits": [B, num_classes]}``."""
 
     def __init__(self, num_classes: int = 80, size: str = "n", task: str = "detect",
-                 reg_max: int = 16):
+                 reg_max: int = 16, num_keypoints: int = 17, num_masks: int = 32):
         super().__init__()
         if task not in TASKS:
-            raise ValueError(f"task {task!r} is not ported yet (ported: {TASKS})")
+            raise ValueError(f"unknown task {task!r} (tasks: {TASKS})")
         self.num_classes, self.size, self.task, self.reg_max = num_classes, size, task, reg_max
+        self.num_keypoints, self.num_masks = num_keypoints, num_masks
         depth, width, max_ch = SIZES[size]
 
         def ch(base: int) -> int:
@@ -190,7 +259,7 @@ class YOLO(nn.Module):
         c64, c128, c256, c512, c1024 = ch(64), ch(128), ch(256), ch(512), ch(1024)
         # keys are the ultralytics yolov8 yaml indices (10, 11, 13, 14, 17,
         # 20 are the parameterless upsamples and concats)
-        self.model = nn.ModuleDict({
+        layers = {
             "0": ConvBnSilu(3, c64, 3, 2),
             "1": ConvBnSilu(c64, c128, 3, 2),
             "2": C2f(c128, c128, reps(3)),
@@ -200,21 +269,31 @@ class YOLO(nn.Module):
             "6": C2f(c512, c512, reps(6)),
             "7": ConvBnSilu(c512, c1024, 3, 2),
             "8": C2f(c1024, c1024, reps(3)),
-            "9": SPPF(c1024, c1024),
-            "12": C2f(c1024 + c512, c512, reps(3), shortcut=False),
-            "15": C2f(c512 + c256, c256, reps(3), shortcut=False),
-            "16": ConvBnSilu(c256, c256, 3, 2),
-            "18": C2f(c256 + c512, c512, reps(3), shortcut=False),
-            "19": ConvBnSilu(c512, c512, 3, 2),
-            "21": C2f(c512 + c1024, c1024, reps(3), shortcut=False),
-            "22": Head((c256, c512, c1024), num_classes, task, reg_max),
-        })
+        }
+        if task == "classify":
+            # yolov8-cls: the backbone ends at the P5 C2f (yaml index 8: no
+            # SPPF, no neck); its Classify head is yaml index 9
+            layers["9"] = Classify(c1024, num_classes)
+        else:
+            layers.update({
+                "9": SPPF(c1024, c1024),
+                "12": C2f(c1024 + c512, c512, reps(3), shortcut=False),
+                "15": C2f(c512 + c256, c256, reps(3), shortcut=False),
+                "16": ConvBnSilu(c256, c256, 3, 2),
+                "18": C2f(c256 + c512, c512, reps(3), shortcut=False),
+                "19": ConvBnSilu(c512, c512, 3, 2),
+                "21": C2f(c512 + c1024, c1024, reps(3), shortcut=False),
+                "22": Head((c256, c512, c1024), num_classes, task, reg_max, num_keypoints, num_masks),
+            })
+        self.model = nn.ModuleDict(layers)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+    def forward(self, x: torch.Tensor) -> Dict[str, Union[List[torch.Tensor], torch.Tensor]]:
         m = self.model
         x = m["2"](m["1"](m["0"](x)))
         p3 = m["4"](m["3"](x))
         p4 = m["6"](m["5"](p3))
+        if self.task == "classify":
+            return m["9"](m["8"](m["7"](p4)))
         p5 = m["9"](m["8"](m["7"](p4)))
         n4 = m["12"](torch.cat([_upsample2(p5), p4], 1))
         n3 = m["15"](torch.cat([_upsample2(n4), p3], 1))
@@ -226,26 +305,32 @@ class YOLO(nn.Module):
     def fuse_(self, dtype: torch.dtype = torch.float32) -> "YOLO":
         """Fold every BatchNorm into its conv (computed in float32 from the
         current parameters, on their device) and cast the folded tensors and
-        the head's plain convs to ``dtype``. Call again after ``.to()``."""
+        the layers without a BatchNorm (the heads' output convs, Proto's
+        ConvTranspose, the classify Linear) to ``dtype``. Call again after
+        ``.to()``."""
         for mod in self.modules():
             if isinstance(mod, ConvBnSilu):
                 mod.fuse_(dtype)
-        for branches in (self.model["22"].cv2, self.model["22"].cv3, self.model["22"].cv4 or []):
-            for seq in branches:
-                seq[2].to(dtype=dtype, memory_format=torch.channels_last)
+            elif isinstance(mod, (PlainConv, nn.ConvTranspose2d)):
+                mod.to(dtype=dtype, memory_format=torch.channels_last)
+            elif isinstance(mod, nn.Linear):
+                mod.to(dtype=dtype)
         return self
 
 
 def init_parameters_(model: YOLO, seed: int = 0) -> YOLO:
-    """Seeded random init with flax's defaults: conv kernels lecun-normal
-    (truncated at 2 sigma), biases 0, BatchNorm scale 1, shift 0, mean 0,
-    variance 1. A ``torch.Generator`` on the CPU makes the numbers, so they
-    are the same on every machine for one seed."""
+    """Seeded random init with flax's defaults: conv, ConvTranspose and
+    Linear kernels lecun-normal (truncated at 2 sigma, fan-in = kernel
+    height x width x input channels), biases 0, BatchNorm scale 1, shift 0,
+    mean 0, variance 1. A ``torch.Generator`` on the CPU makes the numbers,
+    so they are the same on every machine for one seed."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, nn.Conv2d):
-                fan_in = mod.weight[0].numel()
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                # ConvTranspose2d kernels are [in, out, kh, kw]
+                fan_in = (mod.weight[:, 0].numel() if isinstance(mod, nn.ConvTranspose2d)
+                          else mod.weight[0].numel())
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 w = torch.empty(mod.weight.shape)
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
@@ -255,9 +340,11 @@ def init_parameters_(model: YOLO, seed: int = 0) -> YOLO:
     return model
 
 
-def create_model(num_classes: int, size: str = "n", task: str = "detect", seed: int = 0) -> YOLO:
+def create_model(num_classes: int, size: str = "n", task: str = "detect", seed: int = 0,
+                 num_keypoints: int = 17, num_masks: int = 32) -> YOLO:
     """A float32 model on the CPU with seeded random parameters."""
-    return init_parameters_(YOLO(num_classes, size, task), seed).eval()
+    return init_parameters_(YOLO(num_classes, size, task, num_keypoints=num_keypoints,
+                                 num_masks=num_masks), seed).eval()
 
 
 def letterbox_params(h: int, w: int, image_size: int = 640) -> Tuple[float, int, int, int, int]:
@@ -317,3 +404,4 @@ def preprocess_fused(image_u8: torch.Tensor, image_size: int = 640) -> torch.Ten
         pad = (0, 0, left, image_size - nw - left, top, image_size - nh - top)
         x = F.pad(x, pad, value=float(np.float32(114.0 / 255.0)))
     return x
+

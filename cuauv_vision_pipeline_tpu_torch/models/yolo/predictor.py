@@ -1,11 +1,15 @@
 """High-level YOLO predictor: the ultralytics-YOLO-shaped entry point.
 
-Port of ``cuauv_vision_pipeline_tpu.models.yolo.predictor`` (detect and
-obb; the int8 and w8a8 modes are not ported): construct from a weight path
-(or task + class names), ``.task``, ``.to(device)``, and ``.track(image)``
-returning objects whose ``.summary()`` yields the dicts MAP_FN parses. The
-preamble, conv stack, decode and NMS run on the model's device (``cuda:0``
-unless told otherwise); tracking is host-side (tracker.py).
+Port of ``cuauv_vision_pipeline_tpu.models.yolo.predictor`` (all five
+tasks, and the int8 and w8a8 modes of ``quant.py``): construct from a weight
+path (or task + class names), ``.task``, ``.to(device)``, and
+``.track(image)`` returning objects whose ``.summary()`` yields the dicts
+MAP_FN parses (classify: the top 5 classes). The preamble, conv stack,
+decode and NMS run on the model's device (``cuda:0`` unless told otherwise);
+tracking is host-side (tracker.py).
+
+The letterbox is the matrix-product form (``preprocess_fused``), equal at
+the u8 level to the JAX package's gather form at the serving sizes.
 
 Precision: ``half_precision=True`` (serving) runs the conv stack in bf16 —
 every BatchNorm folded into its conv in float32, the folded weights and the
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ...core.device import full_f32, resolve_device
+from . import quant
 from .decode import decode, summarize
 from .model import create_model, letterbox_params, preprocess_fused
 from .tracker import ByteTracker
@@ -64,17 +69,20 @@ class YoloModel:
         conf_thresh: float = 0.25,
         max_det: int = 32,
         half_precision: bool = True,
+        quantize: Optional[str] = None,
         nms_pool: int = 512,
         device=None,
     ):
         """``device``: ``None`` is ``cuda:0`` (raises without CUDA), else as
         ``core.device.resolve_device`` reads it (``"cpu"``, ``N``, a
         ``torch.device``). With no weight file the model serves seeded random
-        init (seed 0). ``nms_pool`` bounds the NMS candidate set (exact
-        while the above-``conf_thresh`` candidates fit it);
-        ``CUAUV_YOLO_NMS_POOL`` overrides it."""
-        if os.environ.get("CUAUV_YOLO_QUANT") or os.environ.get("CUAUV_YOLO_INT8") == "1":
-            raise ValueError("the int8 and w8a8 YOLO modes are not ported to PyTorch yet")
+        init (seed 0). ``quantize``: ``None``, ``"int8"`` (weight-only) or
+        ``"w8a8"`` (quant.py); unset, ``CUAUV_YOLO_QUANT=int8|w8a8`` or
+        ``CUAUV_YOLO_INT8=1`` choose it; any other mode raises ValueError.
+        ``nms_pool`` bounds the NMS candidate set (exact while the
+        above-``conf_thresh`` candidates fit it); ``CUAUV_YOLO_NMS_POOL``
+        overrides it."""
+        self.quantize = quant.resolve_mode(quantize)
         # None = serve at the checkpoint's embedded training resolution
         # (else 640); an explicit value always wins
         self.image_size = image_size if image_size is not None else 640
@@ -103,14 +111,23 @@ class YoloModel:
             self.class_names = list(class_names or DEFAULT_CLASS_NAMES)
             self.task = task
             self.model = create_model(len(self.class_names), size=size, task=task)
+        # the weight-only int8 store, from the float32 weights, kept on the
+        # host: only the weights dequantized from it go to the device
+        self._int8 = quant.quantize_weights_int8(self.model) if self.quantize == "int8" else None
         self.to(resolve_device(device))
 
     def to(self, device) -> "YoloModel":
         """Place the model on ``device`` (a ``torch.device``, ``"cpu"``,
-        ``"cuda:N"``) and refold its BatchNorms there for this precision."""
+        ``"cuda:N"``) and refold its BatchNorms there for this precision
+        (from the int8 store in that mode; w8a8 quantizes there instead)."""
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if self.half_precision else torch.float32
         self.model.to(self.device, memory_format=torch.channels_last)
+        if self.quantize == "w8a8":
+            quant.w8a8_(self.model, self.dtype)
+            return self
+        if self._int8 is not None:
+            quant.dequantize_int8_(self.model, self._int8, self.dtype)
         self.model.fuse_(self.dtype)
         return self
 
@@ -121,16 +138,20 @@ class YoloModel:
 
     def _heads(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
         """The conv stack on letterboxed [K, S, S, 3] float32 -> the raw
-        per-scale head maps (NHWC, float32)."""
+        per-scale head maps (NHWC, float32; segment's ``proto`` and
+        classify's ``logits`` are single tensors)."""
         with torch.inference_mode():
             # NHWC memory seen as NCHW: a channels_last tensor, no copy
             x = x.to(self.dtype).permute(0, 3, 1, 2)
             with contextlib.nullcontext() if self.half_precision else full_f32():
                 outputs = self.model(x)
-            return {k: [o.float() for o in v] for k, v in outputs.items()}
+            return {k: [o.float() for o in v] if isinstance(v, list) else v.float()
+                    for k, v in outputs.items()}
 
     def _decode(self, outputs: Dict[str, List[torch.Tensor]]) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
+            if self.task == "classify":
+                return {"probs": torch.softmax(outputs["logits"], -1)}
             return decode(outputs, self.image_size, reg_max=self.model.reg_max,
                           conf_thresh=self.conf_thresh, max_det=self.max_det,
                           nms_pool=self.nms_pool)
@@ -179,11 +200,18 @@ class YoloModel:
 
     def summarize_decoded(self, decoded_np: Dict, orig_hw: Tuple[int, int]) -> List[Dict]:
         """Host half: undo the letterbox (orig = (model_coord - pad) /
-        scale) and format ultralytics-style summary dicts."""
+        scale) and format ultralytics-style summary dicts; classify: the
+        top 5 ``{name, class, confidence}`` (ultralytics' classification
+        summary)."""
+        if self.task == "classify":
+            probs = np.asarray(decoded_np["probs"])
+            return [{"name": self.class_names[i] if i < len(self.class_names) else str(int(i)),
+                     "class": int(i), "confidence": float(probs[i])}
+                    for i in np.argsort(probs)[::-1][:5]]
         h, w = orig_hw
         scale, left, top, _, _ = letterbox_params(h, w, self.image_size)
         return summarize(decoded_np, self.class_names, (1.0 / scale, 1.0 / scale), self.task,
-                         pad=(left, top), clip_wh=(float(w), float(h)))
+                         pad=(left, top), clip_wh=(float(w), float(h)), image_size=self.image_size)
 
     def predict(self, image: np.ndarray) -> List[Dict]:
         decoded = {k: v.cpu().numpy() for k, v in self.device_decode(image).items()}
@@ -191,7 +219,8 @@ class YoloModel:
 
     def track(self, image: np.ndarray, verbose: bool = False) -> List[_Result]:
         summary = self.predict(image)
-        self._tracker.update(summary)
+        if self.task != "classify":  # whole-frame labels carry no boxes
+            self._tracker.update(summary)
         return [_Result(summary)]
 
     def __call__(self, image: np.ndarray) -> List[_Result]:

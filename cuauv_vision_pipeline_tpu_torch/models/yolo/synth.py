@@ -386,6 +386,6 @@ def mask_iou(pred_mask: np.ndarray, gt_mask: np.ndarray, thresh: float = 0.5) ->
 
 def to_model_input(images_u8_bgr: np.ndarray) -> np.ndarray:
     """u8 BGR [B,S,S,3] -> f32 RGB [0,1] — the square-frame special case of
-    model.preprocess (no resize/pad when the frame is already S x S), so
+    model.preprocess_fused (no resize/pad when the frame is already S x S), so
     training inputs match exactly what the predictor feeds at inference."""
     return images_u8_bgr[..., ::-1].astype(np.float32) / 255.0

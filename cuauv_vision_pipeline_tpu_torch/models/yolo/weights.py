@@ -1,4 +1,4 @@
-"""Checkpoint I/O for the port's YOLO (detect and obb).
+"""Checkpoint I/O for the port's YOLO (all five tasks).
 
 Two formats, as the JAX package reads them:
 
@@ -18,11 +18,17 @@ port's copy of ``cuauv_vision_pipeline_tpu.models.yolo.weights``' table:
     12,15  neck top-down C2f            -> C2f_4, C2f_5
     16,19  neck bottom-up downsamples   -> ConvBnSilu_5, ConvBnSilu_6
     18,21  neck bottom-up C2f           -> C2f_6, C2f_7
-    22     Detect/OBB head              -> {box,cls,ang}_{conv1,conv2,out}_{s}
+    22     Detect/OBB/Pose/Segment head -> {box,cls,ang,kpt,mask}_{conv1,conv2,out}_{s}
+           (+ Segment's model.22.proto.{cv1,upsample,cv2,cv3} -> proto/*)
+    9      (classify) Classify          -> classify_conv, classify_linear
+           (yolov8-cls keeps backbone indices 0..8 and has no neck)
 
 Within a Conv module: ``.conv.weight`` (OIHW) <- ``Conv_0/kernel`` (HWIO),
 ``.bn.{weight,bias,running_mean,running_var}`` <-
-``BatchNorm_0/{scale,bias,mean,var}``.
+``BatchNorm_0/{scale,bias,mean,var}``. Proto's ``upsample``
+(``ConvTranspose2d``, IOHW) <- flax ``ConvTranspose`` HWIO with the spatial
+axes flipped (flax's ``conv_transpose`` does not flip the kernel, torch's
+does); the classify ``linear`` (out, in) <- flax ``Dense`` (in, out).
 """
 
 from __future__ import annotations
@@ -158,9 +164,12 @@ def _reject_chunked(tree: Any) -> None:
 
 def _module_pairs(params: Dict, task: str) -> List[Tuple[str, Tuple[str, ...], str]]:
     """(torch module prefix, flax module path, kind) for every mapped module;
-    kind is 'convbn' (Conv+BN) or 'conv' (plain 1x1 head conv with bias)."""
+    kind is 'convbn' (Conv+BN), 'conv' (plain 1x1 head conv with bias),
+    'convT' (Proto's ConvTranspose) or 'dense' (the classify Linear)."""
     pairs: List[Tuple[str, Tuple[str, ...], str]] = []
     for flax_name, idx in _BACKBONE_IDX.items():
+        if task == "classify" and idx > 8:
+            continue
         tp = f"model.{idx}"
         if flax_name.startswith("ConvBnSilu"):
             pairs.append((tp, (flax_name,), "convbn"))
@@ -173,49 +182,71 @@ def _module_pairs(params: Dict, task: str) -> List[Tuple[str, Tuple[str, ...], s
             pairs.append((f"{tp}.m.{j}.cv1", base + ("ConvBnSilu_0",), "convbn"))
             pairs.append((f"{tp}.m.{j}.cv2", base + ("ConvBnSilu_1",), "convbn"))
             j += 1
-    branches = [("cv2", "box"), ("cv3", "cls")] + ([("cv4", "ang")] if task == "obb" else [])
+    if task == "classify":
+        pairs.append(("model.9.conv", ("classify_conv",), "convbn"))
+        pairs.append(("model.9.linear", ("classify_linear",), "dense"))
+        return pairs
+    extra = {"obb": "ang", "pose": "kpt", "segment": "mask"}.get(task)
+    branches = [("cv2", "box"), ("cv3", "cls")] + ([("cv4", extra)] if extra else [])
     for s in range(3):
         for tb, fb in branches:
             hp = f"model.{_HEAD_IDX}.{tb}.{s}"
             pairs.append((f"{hp}.0", (f"{fb}_conv1_{s}",), "convbn"))
             pairs.append((f"{hp}.1", (f"{fb}_conv2_{s}",), "convbn"))
             pairs.append((f"{hp}.2", (f"{fb}_out_{s}",), "conv"))
+    if task == "segment":
+        pp = f"model.{_HEAD_IDX}.proto"
+        pairs.append((f"{pp}.cv1", ("proto", "ConvBnSilu_0"), "convbn"))
+        pairs.append((f"{pp}.upsample", ("proto", "up"), "convT"))
+        pairs.append((f"{pp}.cv2", ("proto", "ConvBnSilu_1"), "convbn"))
+        pairs.append((f"{pp}.cv3", ("proto", "ConvBnSilu_2"), "convbn"))
     return pairs
 
 
 def _tensor_entries(torch_prefix: str, flax_path: Tuple[str, ...], kind: str):
-    """(torch key, flax (collection, *path, leaf), HWIO kernel?) triples."""
+    """(torch key, flax (collection, *path, leaf), layout) triples; layout is
+    None (as is), "conv" (HWIO -> OIHW), "convT" (HWIO -> IOHW, spatially
+    flipped) or "dense" (transposed)."""
     if kind == "convbn":
         bn = flax_path + ("BatchNorm_0",)
         return [
-            (f"{torch_prefix}.conv.weight", ("params",) + flax_path + ("Conv_0", "kernel"), True),
-            (f"{torch_prefix}.bn.weight", ("params",) + bn + ("scale",), False),
-            (f"{torch_prefix}.bn.bias", ("params",) + bn + ("bias",), False),
-            (f"{torch_prefix}.bn.running_mean", ("batch_stats",) + bn + ("mean",), False),
-            (f"{torch_prefix}.bn.running_var", ("batch_stats",) + bn + ("var",), False),
+            (f"{torch_prefix}.conv.weight", ("params",) + flax_path + ("Conv_0", "kernel"), "conv"),
+            (f"{torch_prefix}.bn.weight", ("params",) + bn + ("scale",), None),
+            (f"{torch_prefix}.bn.bias", ("params",) + bn + ("bias",), None),
+            (f"{torch_prefix}.bn.running_mean", ("batch_stats",) + bn + ("mean",), None),
+            (f"{torch_prefix}.bn.running_var", ("batch_stats",) + bn + ("var",), None),
         ]
     return [
-        (f"{torch_prefix}.weight", ("params",) + flax_path + ("kernel",), True),
-        (f"{torch_prefix}.bias", ("params",) + flax_path + ("bias",), False),
+        (f"{torch_prefix}.weight", ("params",) + flax_path + ("kernel",), kind),
+        (f"{torch_prefix}.bias", ("params",) + flax_path + ("bias",), None),
     ]
+
+
+def _to_torch_layout(arr: np.ndarray, layout) -> np.ndarray:
+    if layout == "conv":
+        return np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+    if layout == "convT":
+        return np.transpose(np.flip(arr, axis=(0, 1)), (2, 3, 0, 1))  # HWIO -> IOHW, flipped
+    if layout == "dense":
+        return arr.T  # (in, out) -> (out, in)
+    return arr
 
 
 def params_from_flax(variables: Dict, task: str) -> Dict[str, torch.Tensor]:
     """A flax YOLO variable tree (``{"params", "batch_stats"}`` of numpy
     arrays) as a state dict of the port's :class:`YOLO`: conv kernels HWIO ->
-    OIHW, BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
+    OIHW, the ConvTranspose kernel HWIO -> IOHW flipped, the Dense kernel
+    transposed, BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
     running_var. Raises KeyError on a missing tensor."""
     if task not in TASKS:
-        raise ValueError(f"task {task!r} is not ported yet (ported: {TASKS})")
+        raise ValueError(f"unknown task {task!r} (tasks: {TASKS})")
     state: Dict[str, torch.Tensor] = {}
     for tp, fp, kind in _module_pairs(variables["params"], task):
-        for tkey, fkey, kernel in _tensor_entries(tp, fp, kind):
+        for tkey, fkey, layout in _tensor_entries(tp, fp, kind):
             node = variables
             for part in fkey:
                 node = node[part]
-            arr = np.asarray(node, np.float32)
-            if kernel:
-                arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+            arr = _to_torch_layout(np.asarray(node, np.float32), layout)
             state[tkey] = torch.from_numpy(np.array(arr, np.float32, order="C"))
     return state
 
@@ -234,7 +265,8 @@ def load_checkpoint(path: str) -> Tuple[YOLO, Dict]:
         with open(path + ".json") as fh:
             meta = json.load(fh)
     task = meta.get("task", "detect")
-    model = YOLO(meta.get("num_classes", 80), meta.get("size", "n"), task)
+    model = YOLO(meta.get("num_classes", 80), meta.get("size", "n"), task,
+                 num_keypoints=meta.get("num_keypoints", 17), num_masks=meta.get("num_masks", 32))
     try:
         with open(path, "rb") as fh:
             variables = msgpack_restore(fh.read())
@@ -245,7 +277,7 @@ def load_checkpoint(path: str) -> Tuple[YOLO, Dict]:
 
 
 def _load_ultralytics(path: str) -> Tuple[YOLO, Dict]:
-    """Import an ultralytics .pt checkpoint (detect or obb)."""
+    """Import an ultralytics .pt checkpoint (any of the five tasks)."""
     try:
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
     except Exception as exc:
@@ -281,13 +313,30 @@ def _load_ultralytics(path: str) -> Tuple[YOLO, Dict]:
     size = _WIDTH_TO_SIZE[stem.shape[0]]
     cls_bias = state.get(f"model.{_HEAD_IDX}.cv3.0.2.bias")
     num_classes = len(names) if names else (cls_bias.shape[0] if cls_bias is not None else 80)
+    # the head's structure names the task when nothing declared it: a Proto
+    # means segment (its 32-wide cv4 would read as pose), a classify Linear
+    # classify, OBB's angle branch ends in 1 channel, pose's in 3*nk
     cv4_bias = state.get(f"model.{_HEAD_IDX}.cv4.0.2.bias")
+    has_proto = f"model.{_HEAD_IDX}.proto.cv1.conv.weight" in state
+    linear_bias = state.get("model.9.linear.bias")
     if not task:
-        task = "detect" if cv4_bias is None else "obb" if cv4_bias.shape[0] == 1 else "pose"
+        if linear_bias is not None:
+            task = "classify"
+        elif has_proto:
+            task = "segment"
+        elif cv4_bias is None:
+            task = "detect"
+        else:
+            task = "obb" if cv4_bias.shape[0] == 1 else "pose"
     if task not in TASKS:
         raise RuntimeError(f"'{path}' is a {task!r} checkpoint; the port serves {TASKS}")
+    if task == "classify" and not names and linear_bias is not None:
+        num_classes = int(linear_bias.shape[0])  # no detect head to read
+    # pose and segment checkpoints carry nk and nm in the cv4 branch width
+    num_keypoints = int(cv4_bias.shape[0]) // 3 if task == "pose" and cv4_bias is not None else 17
+    num_masks = int(cv4_bias.shape[0]) if task == "segment" and cv4_bias is not None else 32
 
-    model = create_model(num_classes, size, task)
+    model = create_model(num_classes, size, task, num_keypoints=num_keypoints, num_masks=num_masks)
     own = model.state_dict()
     report = {"mapped": 0, "missing": 0, "mismatched": 0}
     for key, want in own.items():

@@ -3,9 +3,10 @@
 
 Port of ``cuauv_vision_pipeline_tpu.modules.yolo`` (reference
 modules/yolo.py:38-237): loads a weight ($CUAUV_YOLO_WEIGHT, else the
-default path, else seeded random init with a warning), runs letterbox +
-YOLOv8 forward + decode + greedy NMS on the module's device (the NMS as one
-CUDA kernel on the card), maps each detection via MAP_FN, buckets detections
+default path, else seeded random init with a warning; a detect, obb, pose or
+segment checkpoint), runs letterbox + YOLOv8 forward + decode + greedy NMS
+(+ keypoints or masks) on the module's device (the NMS as one CUDA kernel on
+the card), maps each detection via MAP_FN, buckets detections
 per handler class, gates on shm.active_objects flags and per-detector
 direction, and dispatches to the six OBB handlers. Camera-to-detection
 telemetry goes to shm.yolo_status.
@@ -93,8 +94,10 @@ class Yolo(ModuleBase, HandlerMixin):
         self.yolo_model_type = self.model.task
         if self.yolo_model_type not in MAP_FN:
             raise ValueError(
-                f"weight '{self.weight_path}' is a '{self.yolo_model_type}' model; the "
-                f"detection modules consume box-producing tasks ({sorted(MAP_FN)})"
+                f"weight '{self.weight_path}' is a '{self.yolo_model_type}' "
+                f"model; the detection modules consume box-producing tasks "
+                f"({sorted(MAP_FN)}). Whole-frame classifiers serve via "
+                f"YoloModel.predict instead."
             )
         self.map_fn: Callable[[dict], DetectionData] = MAP_FN[self.yolo_model_type]
 

@@ -95,8 +95,8 @@ def test_cuda_by_default_and_no_quantized_modes(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with warnings.catch_warnings(), pytest.raises(RuntimeError, match="no CUDA device"):
         YoloModel(None, size="p")
-    monkeypatch.setenv("CUAUV_YOLO_QUANT", "w8a8")
-    with pytest.raises(ValueError, match="not ported"):
+    monkeypatch.setenv("CUAUV_YOLO_QUANT", "int4")  # int8 and w8a8 are served (quant.py)
+    with pytest.raises(ValueError, match="unsupported quantize mode 'int4'"):
         YoloModel(None, size="p", device="cpu")
 
 

@@ -56,7 +56,7 @@ def _flax_tree(task, size, nc=15, seed=None):
 
 
 @pytest.mark.parametrize("size", ["p", "n"])
-@pytest.mark.parametrize("task", ["detect", "obb"])
+@pytest.mark.parametrize("task", ["detect", "obb", "pose", "segment", "classify"])
 def test_state_dict_names_are_export_ultralytics_state(task, size):
     want = export_ultralytics_state(_flax_tree(task, size), task)
     own = YOLO(15, size, task).state_dict()
@@ -68,7 +68,7 @@ def test_state_dict_names_are_export_ultralytics_state(task, size):
             v.numel() for k, v in own.items() if k.endswith(("running_mean", "running_var")))
 
 
-@pytest.mark.parametrize("task", ["detect", "obb"])
+@pytest.mark.parametrize("task", ["detect", "obb", "pose", "segment", "classify"])
 def test_params_from_flax_equals_export(task):
     tree = _flax_tree(task, "p", seed=3)
     want = export_ultralytics_state(tree, task)

@@ -109,7 +109,22 @@ no result):
              frame); no host sync inside ``balance``; the preprocessor's
              stage stack card against CPU, exact (every stage but balance
              and the noise); balance's wall ms and fps at 720p and 1080p.
-13. module — the real entry points as subprocesses: the synthetic camera
+13. train  — YOLO training (``models/yolo/train.py``): (a) one train step of
+             YOLOv8n detect (8 classes) and YOLOv8n-obb (15 classes, with
+             angles) at batch 16, 320 px (bench.py's train-step inputs), on
+             the card with TF32 off against the CPU from the same weights:
+             loss, every parameter gradient and the BatchNorm running
+             statistics within stated tolerances, two card runs' spread
+             beside them; (b) the step timed on a device-resident batch
+             with TF32 off and on: ms per step (median of 30 dependence-
+             chained steps), images/s, device ms, kernels, idle share, peak
+             memory, conv FLOPs (forward x 3) and their share of the
+             card's peak, no host sync inside a step; (c)
+             ``examples.train_synthetic`` at its defaults but 2000 steps on
+             detect (recall and precision >= 0.75 on its held-out scenes,
+             through decode and ``nms_fixed``), then its checkpoint served
+             by ``YoloModel`` in bf16 in the same band.
+14. module — the real entry points as subprocesses: the synthetic camera
              (``--scene zed``, the ZED's four planes) and
              ``modules.red_buoy``, both on a direction named for this run
              and with ``CUAUV_SHM_NAMESPACE`` set to this run's own
@@ -157,7 +172,7 @@ no result):
 
 Launch counts are set to 0 just before each path (the chain phase, the
 YOLO phase, the yolo_tasks phase, the bins phase, the stereo phase, the multicam phase, the
-correction phase, whose path has no hand kernel) and read
+correction phase, whose path has no hand kernel, the train phase) and read
 just after it; with the module processes' own logged counts they are the
 main path's launches, and each kernel of a path must have launched in that
 path's run. Then the CCL kernels', the morphology's, the YOLO path's
@@ -2212,6 +2227,196 @@ def phase_correction_device(card, stack, wall_ms):
     emit("correction_device", **out)
 
 
+# the train phase: bench.py's train step cell (YOLOv8n, batch 16, 320 px,
+# 6 gts per image) for detect (8 classes) and obb (15 classes)
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_GTS = 320, 16, 6
+TRAIN_MODELS = {"detect": 8, "obb": 15}
+TRAIN_TIMED_STEPS = 30
+# the example's run: 2000 steps, not the README's 3000, keep the script
+# near half its time limit (PERF.md §6 has the band against steps)
+TRAIN_CONVERGE_STEPS = 2000
+TRAIN_BAND = 0.75  # recall and precision (the JAX fixture test's band)
+# one step card (TF32 off) against the CPU
+TRAIN_LOSS_RTOL = 1e-5
+# of each parameter gradient's norm: card against CPU measured 3.9e-5 at
+# this size, two card runs (cuDNN's backward-weight kernels) 1.1e-6
+TRAIN_GRAD_TOL = 2e-4
+TRAIN_STATS_RTOL, TRAIN_STATS_ATOL = 1e-5, 1e-6  # |card - cpu| <= atol + rtol * |cpu|
+_TF32_RATE = 495e12  # TF32 tensor-core peak (SXM data sheet, dense)
+
+
+def train_inputs(task: str, size: int = TRAIN_SIZE, batch: int = TRAIN_BATCH) -> tuple:
+    """bench.py's train-step inputs (seed 0: images, boxes, classes), and
+    obb's angles in its decodable range."""
+    rng = np.random.default_rng(0)
+    images = rng.random((batch, size, size, 3), np.float32).astype(np.float32)
+    t_xyxy = rng.random((batch, TRAIN_GTS, 4)).astype(np.float32) * size
+    t_cls = rng.integers(0, TRAIN_MODELS[task], (batch, TRAIN_GTS)).astype(np.int32)
+    if task == "obb":
+        return images, t_xyxy, t_cls, rng.uniform(-np.pi / 4, 3 * np.pi / 4, (batch, TRAIN_GTS)).astype(np.float32)
+    return images, t_xyxy, t_cls
+
+
+def train_once(model, dev, inputs):
+    """One train step of a copy of ``model`` on ``dev`` with TF32 off: (loss,
+    gradients and running statistics on the CPU)."""
+    import copy
+
+    from cuauv_vision_pipeline_tpu_torch.core.device import full_f32
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.train import create_train_state, make_train_step
+
+    m = copy.deepcopy(model).to(dev)
+    step = make_train_step(create_train_state(m))
+    with full_f32():
+        loss = float(step(*(torch.from_numpy(a).to(dev) for a in inputs)))
+    grads = {n: p.grad.cpu() for n, p in m.named_parameters()}
+    stats = {k: v.cpu() for k, v in m.state_dict().items() if "running" in k}
+    return loss, grads, stats
+
+
+def train_diff(a, b) -> dict:
+    """How far one step's (loss, grads, stats) ``a`` lies from ``b``."""
+    grad = {n: ((a[1][n] - g).abs().max() / g.norm().clamp_min(1e-30)).item() for n, g in b[1].items()}
+    # each running statistic's error as a share of its allowance atol + rtol * |cpu|
+    stats = {k: ((a[2][k] - v).abs() / (TRAIN_STATS_ATOL + TRAIN_STATS_RTOL * v.abs())).max().item()
+             for k, v in b[2].items()}
+    worst_g, worst_s = max(grad, key=grad.get), max(stats, key=stats.get)
+    return {"loss_rel_err": abs(a[0] - b[0]) / abs(b[0]), "grad_err_of_norm": grad[worst_g], "grad_worst": worst_g,
+            "stats_share_of_tol": stats[worst_s], "stats_worst": worst_s,
+            "stats_max_abs_err": max((a[2][k] - v).abs().max().item() for k, v in b[2].items())}
+
+
+def conv_flops(model, x) -> int:
+    """Multiply-adds x 2 of every conv, ConvTranspose and Linear of one
+    forward of ``model`` on ``x`` (NCHW), counted from their shapes."""
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.ConvTranspose2d):
+            total[0] += 2 * inp[0].numel() * mod.out_channels * mod.kernel_size[0] * mod.kernel_size[1]
+        elif isinstance(mod, torch.nn.Conv2d):
+            total[0] += 2 * out.numel() * (mod.in_channels // mod.groups) * mod.kernel_size[0] * mod.kernel_size[1]
+        elif isinstance(mod, torch.nn.Linear):
+            total[0] += 2 * out.numel() * mod.in_features
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def train_timing(model, dev, inputs, tf32: bool) -> dict:
+    """The train step of a copy of ``model`` on the device-resident batch:
+    ms per step (median of TRAIN_TIMED_STEPS dependence-chained steps, CUDA
+    events around each), images/s, device ms and kernels per step
+    (torch.profiler), idle share, peak memory, and the conv FLOPs (forward
+    x 3) with their share of the card's float32 (and TF32) peak."""
+    import copy
+
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.train import create_train_state, make_train_step
+
+    m = copy.deepcopy(model).to(dev)
+    step = make_train_step(create_train_state(m))
+    batch = [torch.from_numpy(a).to(dev) for a in inputs]
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        for _ in range(3):
+            step(*batch)
+        torch.cuda.synchronize()
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(TRAIN_TIMED_STEPS)]
+        t0 = time.perf_counter()
+        for start, end in events:
+            start.record()
+            loss = step(*batch)
+            end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS * 1e3
+        ms = statistics.median(s.elapsed_time(e) for s, e in events)
+        prof = profile_fn(lambda: step(*batch), n=5)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step(*batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        syncs = host_syncs(lambda: step(*batch))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    flops = 3 * conv_flops(m, batch[0].permute(0, 3, 1, 2))
+    out = {"tf32": tf32, "ms_per_step": ms, "wall_ms_per_step": wall, "images_per_s": len(inputs[0]) * 1e3 / ms,
+           "device_ms_per_step": prof["device_ms"], "kernels_per_step": prof["kernels"],
+           "device_idle_share": 1 - prof["device_ms"] / ms, "peak_memory_bytes": peak,
+           "conv_flops_per_step": flops, "f32_peak_share": flops / (ms / 1e3) / _F32_RATE,
+           "host_syncs_in_step": syncs, "last_loss": float(loss), "top_device_ms": prof["top_device_ms"]}
+    if tf32:
+        out["tf32_peak_share"] = flops / (ms / 1e3) / _TF32_RATE
+    return out
+
+
+def phase_train(dev, run_id: str):
+    """YOLO training on the card. (a) One train step of YOLOv8n detect (8
+    classes) and YOLOv8n-obb (15 classes, angles) at batch 16, 320 px, on
+    the card with TF32 off against the CPU from the same weights: loss
+    within TRAIN_LOSS_RTOL, every parameter gradient within TRAIN_GRAD_TOL
+    of its norm, the BatchNorm running statistics within
+    TRAIN_STATS_ATOL + TRAIN_STATS_RTOL x |cpu|; two card runs' spread beside
+    it. (b) The step timed
+    on the device-resident batch, TF32 off and on (:func:`train_timing`),
+    with no host sync inside it. (c) The example trainer
+    (``examples.train_synthetic``) at its defaults but TRAIN_CONVERGE_STEPS
+    steps on detect: recall and precision >= TRAIN_BAND on its held-out
+    scenes, then the written checkpoint served by ``YoloModel`` in bf16 on
+    the card (:func:`fixture_scores`) in the same band."""
+    from cuauv_vision_pipeline_tpu_torch.examples import train_synthetic
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.model import create_model
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.predictor import YoloModel
+    from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda
+
+    out, failures = {}, []
+    t0 = time.monotonic()
+    for task, nc in TRAIN_MODELS.items():
+        model = create_model(nc, "n", task, seed=0).train()
+        inputs = train_inputs(task)
+        want = train_once(model, "cpu", inputs)
+        card = train_once(model, dev, inputs)
+        again = train_once(model, dev, inputs)
+        row = out[f"card_vs_cpu_{task}"] = {**train_diff(card, want), "loss": card[0], "cpu_loss": want[0],
+                                           "card_spread": train_diff(again, card)}
+        if not (row["loss_rel_err"] <= TRAIN_LOSS_RTOL and row["grad_err_of_norm"] <= TRAIN_GRAD_TOL
+                and row["stats_share_of_tol"] <= 1):
+            failures.append(f"{task} one step, card against CPU: {row}")
+        out[f"timing_{task}"] = [train_timing(model, dev, inputs, tf32) for tf32 in (False, True)]
+        for timing in out[f"timing_{task}"]:
+            if timing["host_syncs_in_step"] or not np.isfinite(timing["last_loss"]):
+                failures.append(f"{task} timed step: {timing}")
+    out["seconds_parity_and_timing"] = time.monotonic() - t0
+    if failures:
+        emit("train", **out)
+        raise AssertionError("train: " + "; ".join(failures))
+
+    logs = REPO / "smoke_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    ckpt = str(logs / f"train_{run_id[:8]}.msgpack")
+    before = nms_fixed_cuda.launches
+    run = out["converge_detect"] = train_synthetic.run(
+        ["--task", "detect", "--steps", str(TRAIN_CONVERGE_STEPS), "--out", ckpt, "--device", str(dev)])
+    served = out["served_bf16"] = fixture_scores(YoloModel(ckpt, device=dev))
+    out["nms_fixed_launches"] = nms_fixed_cuda.launches - before
+    for name, r in (("trained", run), ("served in bf16", served)):
+        if not (r["recall"] >= TRAIN_BAND and r["precision"] >= TRAIN_BAND):
+            failures.append(f"{name}: recall {r['recall']}, precision {r['precision']} under {TRAIN_BAND}")
+    out["seconds"] = time.monotonic() - t0
+    emit("train", **out)
+    if failures:
+        raise AssertionError("train: " + "; ".join(failures))
+
+
 def phase_module(run_id: str):
     # this run's own names: the cameras' directions (so the bus blocks and
     # the modules' post and tuner blocks) and the shm namespace of its
@@ -2479,8 +2684,11 @@ def phase_module(run_id: str):
         g = gate.get()
         out["gate_module_yolo_gate"] = {k: getattr(g, k) for k in ("shark_visible", "shark_center_x", "shark_center_y",
                                                                    "shark_area", "saw_visible", "saw_area")}
-        out["gate_module_posts"] = posts_of(f"GateDetector-on-{dirs['gate']}")
-        assert "gate handler" in out["gate_module_posts"], out["gate_module_posts"]
+        # the handler writes shm.yolo_gate inside process(); its post block
+        # appears only when the frame's posts are drained after it
+        gate_posts = lambda: posts_of(f"GateDetector-on-{dirs['gate']}")  # noqa: E731
+        wait_for(lambda: "gate handler" in gate_posts(), 30, "the gate module's 'gate handler' post")
+        out["gate_module_posts"] = gate_posts()
         # now that shm.yolo_gate is read: its GateOBB handler writes that group too
         start(["cuauv_vision_pipeline_tpu_torch.modules.yolo", dirs["segcam"]], "seg_yolo",
               CUAUV_YOLO_WEIGHT=str(SEG_FIXTURE))
@@ -2630,7 +2838,7 @@ def main() -> int:
                     "yolo": ("nms_fixed",), "yolo_tasks": ("nms_fixed",),
                     "bins": ("fused_morph", "spacing_select"),
                     "stereo": ("label_cuda_batched", "fused_morph"), "multicam": ("nms_fixed",),
-                    "correction": ()}
+                    "correction": (), "train": ("nms_fixed",)}
     counts = dict.fromkeys(launch_counts(), 0)
 
     def run_path(path, drive):
@@ -2650,6 +2858,7 @@ def main() -> int:
     stereo_in, stereo_wall_ms = run_path("stereo", lambda: phase_stereo(dev))
     multicam = run_path("multicam", lambda: phase_multicam(dev))
     correction = run_path("correction", lambda: phase_correction(dev))
+    run_path("train", lambda: phase_train(dev, run_id))
     module = phase_module(run_id)
     for key, launched in module.items():
         if key.endswith("_launches"):

@@ -1,12 +1,18 @@
-"""Entry point of the port: the flagship forward step.
+"""Entry points of the port: the flagship forward step and one train step.
 
-The twin of the JAX package's ``__graft_entry__.entry``: the YOLO-OBB
-detector (YOLOv8n-obb, 15 classes, seeded random init) with letterbox,
-decode and greedy NMS (the ``nms_fixed`` kernel on the card), at a 320
-square and ``max_det`` 16.
+``entry`` is the twin of the JAX package's ``__graft_entry__.entry``: the
+YOLO-OBB detector (YOLOv8n-obb, 15 classes, seeded random init) with
+letterbox, decode and greedy NMS (the ``nms_fixed`` kernel on the card), at
+a 320 square and ``max_det`` 16.
 
     fn, args = entry()      # on cuda:0; entry("cpu") on the host
     decoded = fn(*args)     # xyxy, score, cls, valid, angle: [1, 16, ...]
+
+``train_step_entry`` is the one-card twin of the training step that
+``__graft_entry__.dryrun_multichip`` shards over a mesh: YOLOv8n detect, 4
+classes, 64 px, batch 2, inputs seeded as there, one step.
+
+    loss = train_step_entry()   # on cuda:0; train_step_entry("cpu")
 """
 
 from __future__ import annotations
@@ -36,3 +42,28 @@ def entry(device=None):
     rng = np.random.default_rng(0)
     example_image = torch.from_numpy(rng.integers(0, 255, (1, image_size, image_size, 3), dtype=np.uint8)).to(dev)
     return forward, (model, example_image)
+
+
+def train_step_entry(device=None) -> float:
+    """One YOLO training step (YOLOv8n detect, 4 classes, 64 px, batch 2, 3
+    gts per image; seeded random init and inputs) on ``device`` (``cuda:0``
+    unless told otherwise; raises without CUDA). Returns the loss, which
+    must be finite."""
+    import torch
+
+    from .core.device import resolve_device
+    from .models.yolo.model import create_model
+    from .models.yolo.train import create_train_state, make_train_step
+
+    dev = resolve_device(device)
+    image_size, batch = 64, 2
+    model = create_model(num_classes=4, size="n", task="detect").to(dev)
+    step = make_train_step(create_train_state(model))
+    rng = np.random.default_rng(0)
+    images = rng.random((batch, image_size, image_size, 3)).astype(np.float32)
+    t_xyxy = rng.random((batch, 3, 4)).astype(np.float32) * image_size
+    t_cls = rng.integers(0, 4, (batch, 3)).astype(np.int32)
+    loss = float(step(*(torch.from_numpy(a).to(dev) for a in (images, t_xyxy, t_cls))))
+    if not np.isfinite(loss):
+        raise RuntimeError(f"non-finite loss: {loss}")
+    return loss

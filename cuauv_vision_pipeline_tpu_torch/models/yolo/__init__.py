@@ -1,3 +1,3 @@
-"""YOLO on PyTorch/CUDA: torch model, decode + NMS (a CUDA kernel on the
-card), data classes, tracking. Port of ``cuauv_vision_pipeline_tpu.models.yolo``
-for the detect and obb tasks."""
+"""YOLO on PyTorch/CUDA: torch model (all five tasks), decode + NMS (a CUDA
+kernel on the card), quantized serving, data classes, tracking, checkpoint
+I/O and the trainer. Port of ``cuauv_vision_pipeline_tpu.models.yolo``."""

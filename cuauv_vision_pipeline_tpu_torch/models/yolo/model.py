@@ -13,6 +13,10 @@ Layouts: the modules run NCHW (``channels_last`` memory on the card); the
 forward's outputs are NHWC views, as flax returns them, so decode flattens
 anchors in the JAX package's order (row-major H, then W).
 
+``create_model`` returns the model in eval mode (serving); ``model.train()``
+switches the BatchNorms to flax's training semantics (batch statistics,
+the running ones moved at momentum 0.97) for ``train.py``.
+
 ``YOLO.fuse_`` folds each BatchNorm into its convolution for inference
 (one conv with bias + SiLU per layer instead of conv, BN, SiLU); the fold is
 computed in float32 and then cast to the serving dtype. The quantized
@@ -43,6 +47,7 @@ SIZES = {
 }
 TASKS = ("detect", "obb", "pose", "segment", "classify")
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.97  # flax's: the running statistics' weight per step
 # ultralytics Classify head's fixed embedding width (not width-scaled)
 CLASSIFY_EMBED = 1280
 
@@ -52,9 +57,18 @@ def _make_divisible(x: float, divisor: int = 8) -> int:
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with ultralytics' four tensors and nothing else
+    """BatchNorm with ultralytics' four tensors and nothing else
     (``nn.BatchNorm2d`` adds ``num_batches_tracked``, which no checkpoint of
-    the JAX package carries)."""
+    the JAX package carries).
+
+    In eval mode it normalises with the running statistics. In train mode it
+    is flax's ``nn.BatchNorm(momentum=0.97, epsilon=1e-3)`` with
+    ``use_running_average=False``: it normalises with the batch mean and the
+    biased variance over N, H, W (gradients flow through both), and moves
+    the running statistics by ``running = 0.97 * running + 0.03 * batch``
+    with that biased variance, flax's fast form ``E[x^2] - E[x]^2`` clamped
+    at 0. torch's own running update (unbiased variance, momentum the new
+    value's weight) is not used."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -64,8 +78,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, False, 0.0, BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, BN_EPS)
+        with torch.no_grad():
+            mean = x.mean((0, 2, 3))
+            var = torch.clamp_min((x * x).mean((0, 2, 3)) - mean * mean, 0.0)
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, BN_EPS)
 
 
 class ConvBnSilu(nn.Module):
@@ -300,6 +321,15 @@ class YOLO(nn.Module):
         n4b = m["18"](torch.cat([m["16"](n3), n4], 1))
         n5 = m["21"](torch.cat([m["19"](n4b), p5], 1))
         return m["22"]([n3, n4b, n5])
+
+    def train(self, mode: bool = True) -> "YOLO":
+        """Train mode (``mode=True``), as ``nn.Module.train``; refused once
+        :meth:`fuse_` or a quantized mode (``quant.py``) has replaced the
+        BatchNorms or convs: a folded or quantized model cannot train."""
+        if mode and any(getattr(m, "fused", None) is not None or getattr(m, "qconv", None) is not None
+                        for m in self.modules()):
+            raise RuntimeError("a fused or quantized YOLO cannot train: build it anew from its weights")
+        return super().train(mode)
 
     @torch.no_grad()
     def fuse_(self, dtype: torch.dtype = torch.float32) -> "YOLO":

@@ -1,15 +1,18 @@
 """Checkpoint I/O for the port's YOLO (all five tasks).
 
-Two formats, as the JAX package reads them:
+Two formats, as the JAX package reads and writes them:
 
 * flax ``.msgpack`` checkpoints with a JSON sidecar (task, size, classes,
-  serving resolution). Flax's format is read by a small pure-Python msgpack
-  reader (:func:`msgpack_restore`) of the subset flax writes, since the
-  serving machine need not have the ``msgpack`` package; the flax tree is
-  carried onto the torch module by :func:`params_from_flax`.
+  serving resolution). Flax's format is read and written by a small
+  pure-Python msgpack reader (:func:`msgpack_restore`) and writer
+  (:func:`msgpack_serialize`) of the subset flax uses, since the card's
+  machine need not have the ``msgpack`` package; the flax tree is carried
+  onto the torch module by :func:`params_from_flax` and back by
+  :func:`params_to_flax` (:func:`save_checkpoint`, what the trainer writes).
 * ultralytics ``.pt`` weights: the torch state dict already uses the
-  module's names (model.py), so import is a name-checked copy with the JAX
-  package's report line and strictness.
+  module's names (model.py), so import is a name-checked copy
+  (:func:`map_ultralytics_state`) with the JAX package's report line and
+  strictness; :func:`export_ultralytics_state` writes those names.
 
 Layer correspondence (ultralytics yolov8*.yaml index -> flax module), the
 port's copy of ``cuauv_vision_pipeline_tpu.models.yolo.weights``' table:
@@ -157,6 +160,71 @@ def _reject_chunked(tree: Any) -> None:
             _reject_chunked(v)
 
 
+def _pack_len(out: bytearray, n: int, fix: int, fix_max: int, codes: Tuple[int, int, int]) -> None:
+    """A msgpack header: ``fix | n`` while n <= fix_max (fix 0 = none),
+    else the 8-, 16- or 32-bit length form of ``codes`` (0 = none)."""
+    if fix and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code and n <= limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack item of length {n} is too long")
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    """Append ``obj``'s msgpack encoding, as ``msgpack.packb`` writes it for
+    the subset flax uses: maps (keys sorted, as flax's tree map orders
+    them), str, bin, sequences, non-negative ints and ndarrays as ext 1."""
+    if isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 15, (0, 0xDE, 0xDF))
+        for key in sorted(obj):
+            _pack(key, out)
+            _pack(obj[key], out)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_len(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, bytes):
+        _pack_len(out, len(obj), 0, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 15, (0, 0xDC, 0xDD))
+        for item in obj:
+            _pack(item, out)
+    elif isinstance(obj, int) and 0 <= obj < 1 << 64:
+        if obj <= 0x7F:
+            out.append(obj)
+        else:
+            code, fmt = next(c for c in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q"))
+                             if obj < 1 << (8 * struct.calcsize(c[1])))
+            out.append(code)
+            out += struct.pack(fmt, obj)
+    elif isinstance(obj, np.ndarray):
+        # flax's ndarray ext: msgpack of (shape, dtype name, C-order bytes)
+        payload = bytearray()
+        _pack((tuple(int(d) for d in obj.shape), obj.dtype.name, obj.tobytes("C")), payload)
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):
+            out.append(0xD4 + n.bit_length() - 1)
+        else:
+            _pack_len(out, n, 0, 0, (0xC7, 0xC8, 0xC9))
+        out.append(1)
+        out += payload
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} in flax's msgpack subset")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """The bytes flax's ``serialization.msgpack_serialize`` writes for a
+    tree of dicts and numpy arrays (arrays under 1 GiB)."""
+    out = bytearray()
+    _pack(tree, out)
+    return bytes(out)
+
+
 # ---------------------------------------------------------------------------
 # flax tree -> ultralytics names
 # ---------------------------------------------------------------------------
@@ -251,9 +319,93 @@ def params_from_flax(variables: Dict, task: str) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _to_flax_layout(arr: np.ndarray, layout) -> np.ndarray:
+    """The inverse of :func:`_to_torch_layout`."""
+    if layout == "conv":
+        return np.transpose(arr, (2, 3, 1, 0))  # OIHW -> HWIO
+    if layout == "convT":
+        return np.flip(np.transpose(arr, (2, 3, 0, 1)), axis=(0, 1))  # IOHW -> HWIO, flipped
+    if layout == "dense":
+        return arr.T
+    return arr
+
+
+def _flax_skeleton(model: YOLO) -> Dict:
+    """The flax params' C2f nodes with their ``Bottleneck_j`` children, as
+    :func:`_module_pairs` reads them, from the torch module's blocks."""
+    return {name: {f"Bottleneck_{j}": {} for j in range(len(model.model[str(idx)].m))}
+            for name, idx in _BACKBONE_IDX.items()
+            if name.startswith("C2f") and str(idx) in model.model}
+
+
+def params_to_flax(model: YOLO, tensors: Dict[str, torch.Tensor] = None) -> Dict:
+    """The inverse of :func:`params_from_flax`: ``model``'s state dict (or
+    ``tensors``, a dict under the same names, e.g. gradients; names it
+    lacks are left out) as a flax variable tree ``{"params",
+    "batch_stats"}`` of numpy arrays (the tensors' dtype) in flax's
+    layouts."""
+    tensors = model.state_dict() if tensors is None else tensors
+    tree: Dict = {}
+    for tp, fp, kind in _module_pairs(_flax_skeleton(model), model.task):
+        for tkey, fkey, layout in _tensor_entries(tp, fp, kind):
+            if tkey not in tensors:
+                continue
+            node = tree
+            for part in fkey[:-1]:
+                node = node.setdefault(part, {})
+            arr = tensors[tkey].detach().cpu().numpy()
+            node[fkey[-1]] = np.array(_to_flax_layout(arr, layout), order="C")  # a copy
+    return tree
+
+
+def export_ultralytics_state(model: YOLO) -> Dict[str, np.ndarray]:
+    """``model``'s tensors under ultralytics v8 names (OIHW convs), as
+    float32 numpy arrays: the JAX package's ``export_ultralytics_state``
+    for the same weights."""
+    return {key: value.detach().to("cpu", torch.float32).numpy().copy()
+            for key, value in model.state_dict().items()}
+
+
+def map_ultralytics_state(state: Dict[str, Any], model: YOLO) -> Tuple[Dict[str, torch.Tensor], Dict[str, int]]:
+    """Name-driven import of an ultralytics v8 state dict (tensors or numpy
+    arrays) onto ``model``: (``model``'s state dict with every name found at
+    its shape replaced, report of mapped / missing / shape-mismatched
+    tensors). Keys the model lacks (the frozen DFL conv) are ignored."""
+    own = model.state_dict()
+    report = {"mapped": 0, "missing": 0, "mismatched": 0}
+    for key, want in own.items():
+        if key not in state:
+            report["missing"] += 1
+            continue
+        got = state[key]
+        got = got.float() if isinstance(got, torch.Tensor) else torch.from_numpy(np.array(got, np.float32))
+        if got.shape != want.shape:
+            report["mismatched"] += 1
+            continue
+        own[key] = got
+        report["mapped"] += 1
+    return own, report
+
+
 # ---------------------------------------------------------------------------
 # checkpoints
 # ---------------------------------------------------------------------------
+
+
+def save_checkpoint(path: str, model: YOLO, extra: Dict) -> None:
+    """Write ``model`` as a flax ``.msgpack`` (:func:`params_to_flax`,
+    :func:`msgpack_serialize`) with its ``.json`` sidecar: task, size,
+    num_classes, num_keypoints, num_masks and ``extra``. The sidecar keeps
+    ``image_size`` only where ``extra`` gives one, so the checkpoint serves
+    at its trained resolution."""
+    with open(path, "wb") as fh:
+        fh.write(msgpack_serialize(params_to_flax(model)))
+    meta = {"task": model.task, "size": model.size, "num_classes": model.num_classes,
+            "num_keypoints": model.num_keypoints, "num_masks": model.num_masks, **extra}
+    if meta.get("image_size") is None:
+        meta.pop("image_size", None)
+    with open(path + ".json", "w") as fh:
+        json.dump(meta, fh)
 
 
 def load_checkpoint(path: str) -> Tuple[YOLO, Dict]:
@@ -337,17 +489,7 @@ def _load_ultralytics(path: str) -> Tuple[YOLO, Dict]:
     num_masks = int(cv4_bias.shape[0]) if task == "segment" and cv4_bias is not None else 32
 
     model = create_model(num_classes, size, task, num_keypoints=num_keypoints, num_masks=num_masks)
-    own = model.state_dict()
-    report = {"mapped": 0, "missing": 0, "mismatched": 0}
-    for key, want in own.items():
-        got = state.get(key)
-        if got is None:
-            report["missing"] += 1
-        elif got.shape != want.shape:
-            report["mismatched"] += 1
-        else:
-            own[key] = got
-            report["mapped"] += 1
+    own, report = map_ultralytics_state(state, model)
     print(
         f"[yolo] .pt import ({task}/{size}): {report['mapped']} tensors mapped, "
         f"{report['missing']} missing, {report['mismatched']} shape-mismatched"

@@ -12,7 +12,8 @@ no result):
 3. kernels — each CUDA kernel against its plain PyTorch version on the same
              card tensors, exact equality required, CCL cases launched twice
              (equal reruns), among them components across the kernel's
-             32x32 tile seams; the morphology on graded u8 values, ragged
+             32x32 tile seams and Canny's candidate masks of 1080p frames
+             (one, and a [4, H, W] stack); the morphology on graded u8 values, ragged
              widths and heights, an odd address, B=8 stacks whose images
              differ at their seams, and against four ``max_pool2d`` calls;
              then kernel, plain and library times at the main path's 1080p
@@ -58,7 +59,7 @@ no result):
              equal; TF32 on must fail the head tolerance; (b)
              the trained fixture in bf16 on the card over 24 synthetic scenes
              (recall and precision >= 0.75); (c) event-timed ms per frame and
-             per-frame fps over five 2 s windows.
+             per-frame fps over three 2 s windows.
 8. yolo_tasks — the rest of YOLO serving at full width: (a) YOLOv8n-seg
              (15 classes, 32 masks, 160x160 prototypes) and YOLOv8n-pose
              (17 keypoints) at 640, float32 on the card against the CPU on
@@ -83,7 +84,7 @@ no result):
              overlay exact, keypoints and n_valid equal, descriptor rows
              past 1e-5 counted, the pose quad within 1 px and matches and
              inliers within 2; the host leg's shm.bins_pose visible with >= 8
-             inliers within 12 px of the pasted plate; wall ms, fps over five
+             inliers within 12 px of the pasted plate; wall ms, fps over three
              2 s windows and the host leg's ms. TF32 must be off again after
              the YOLO phase's control.
 10. stereo — the stereo red_buoy chain (BuoyStereo.stereo_chain: both ZED
@@ -170,9 +171,22 @@ no result):
              module exits 0 on SIGINT. Then it removes the blocks, groups
              and recording this run made.
 
+15. library — the feature, threshold and colour library on one 1080p ZED
+             frame, card against CPU: Canny L1 and L2 (and a [2, H, W]
+             stack), its Hough votes and ``find_lines``,
+             ``HsvMaskPipeline.run_sync`` (masks and stats), the
+             cv2.threshold modes, ``histogram_u8``, ``otsu``, the 11x11
+             adaptive thresholds and the color-distance threshold exact;
+             ``kmeans`` (k=4, 10 iterations) labels exact, centres within
+             1e-4, compactness within 1e-5; ``white_balance_bgr`` and
+             ``undistort`` within 1 count on at most 1e-4 of the frame; no
+             host sync inside ``canny``; per function wall ms, device ms,
+             kernels per call and idle share.
+
 Launch counts are set to 0 just before each path (the chain phase, the
 YOLO phase, the yolo_tasks phase, the bins phase, the stereo phase, the multicam phase, the
-correction phase, whose path has no hand kernel, the train phase) and read
+correction phase, whose path has no hand kernel, the train phase, the
+library phase) and read
 just after it; with the module processes' own logged counts they are the
 main path's launches, and each kernel of a path must have launched in that
 path's run. Then the CCL kernels', the morphology's, the YOLO path's
@@ -215,7 +229,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 H, W = 1080, 1920
 FPS_WINDOW_S = 2.0  # one throughput window
-FPS_REPEATS = 5
+FPS_REPEATS = 3  # windows per lane; more would push the script past its time budget
 # device-memory rates by card (bytes/s): NVIDIA data sheets
 _MEM_RATE = {"PCIe": 2.0e12, "HBM3": 3.35e12, "SXM": 3.35e12}
 # the kernels' operations are 32-bit integer ones; a Hopper SM issues INT32
@@ -436,6 +450,18 @@ def phase_kernels(dev, frames, rate):
         "all_fg_b8": full8,
         "image_seams_b8": touching,
     }
+    # Canny's hysteresis input: the candidate masks (thin 8-connected
+    # chains, many of them long) of 1080p frames, one and a stack
+    from cuauv_vision_pipeline_tpu_torch.ops.color import bgr_to_gray
+    from cuauv_vision_pipeline_tpu_torch.ops.feature import _canny_masks
+
+    cand = torch.stack([_canny_masks(bgr_to_gray(f), *LIB_CANNY)[0] for f in frames[:4]])
+    a = label_cuda(cand[0])
+    b = label_cuda(cand[0])
+    torch.cuda.synchronize()
+    compare("label_cuda", a, label(cand[0]), "canny_candidates_1080p")
+    compare("label_cuda", b, a, "canny_candidates_1080p_rerun")
+    batched["canny_candidates_b4"] = cand
     for case, stack in batched.items():
         a = label_cuda_batched(stack)
         b = label_cuda_batched(stack)
@@ -858,7 +884,8 @@ def nms_timing(pool, rate, plain_reps: int = 10) -> dict:
     prof = profile_fn(lambda: nms_fixed_cuda(*pool))
     return {"B": B, "P": P, "picks": int(want[1].sum()), "rounds": rounds, "scanned": scanned, "ious": ious,
             "ms": cuda_ms(lambda: nms_fixed_cuda(*pool), 100),
-            "device_ms": prof["device_ms"] / prof["kernels"], "launches_traced_per_call": prof["kernels"],
+            "device_ms": prof["device_ms"] / prof["kernels"] if prof["kernels"] else None,
+            "launches_traced_per_call": prof["kernels"],
             "plain_ms": cuda_ms(lambda: nms_fixed_plain(boxes, scores, classes, iou, max_det, True, angles),
                                 plain_reps),
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1088,7 +1115,7 @@ def phase_yolo(dev):
     the same maps with TF32 on must fail HEADS_ATOL. (b) The
     trained detect fixture served in bf16 on the card: recall and precision
     >= 0.75 over 24 scenes (seed 77). (c) The serving model's event-timed
-    ms per 1080p frame, per-frame fps over five windows, wrapper calls per
+    ms per 1080p frame, per-frame fps over three windows, wrapper calls per
     frame; and the NMS pool of one real frame, kept for the kernel's timing
     after the main path."""
     from cuauv_vision_pipeline_tpu_torch.models.yolo.predictor import YoloModel
@@ -1181,7 +1208,13 @@ def phase_yolo(dev):
 
 
 def profile_fn(fn, n: int = 20) -> dict:
-    """Device ms and CUDA kernels per call of ``fn`` (torch.profiler)."""
+    """Device ms and CUDA kernels per call of ``fn`` (torch.profiler).
+
+    CUPTI now and then delivers no kernel record for a trace, and once in a
+    while for every later trace of the process. After three empty traces the
+    device ms is the CUDA-event span of one call instead (an upper bound of
+    the kernels' busy time, so the idle share it gives is a lower bound),
+    and the kernel count is not measured (None); ``timed_by`` says which."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1196,12 +1229,13 @@ def profile_fn(fn, n: int = 20) -> dict:
         if events:
             break
     else:
-        raise RuntimeError("torch.profiler recorded no kernel event in three traces")
+        return {"device_ms": cuda_ms(fn, n, warmup=0), "kernels": None, "top_device_ms": [],
+                "timed_by": "cuda_events: torch.profiler recorded no kernel event in three traces"}
     by_name: dict = {}
     for e in events:
         by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + e.self_device_time_total / 1e3 / n
     return {"device_ms": sum(by_name.values()), "kernels": sum(e.count for e in events) / n,
-            "top_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+            "top_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8], "timed_by": "torch.profiler"}
 
 
 def nms_work(boxes, scores, classes, angles, iou_thresh, max_det):
@@ -1268,8 +1302,10 @@ def phase_yolo_device(serve, image, pool, rate):
         bound_by=timing["bound_by"], library_ms=None, max_abs_err=0,
     )
     # per launch: a trace may hold fewer kernel events than calls
-    per_launch = {k: stages[k]["device_ms"] / stages[k]["kernels"] for k in ("nms_fixed", "nms_fixed_one_round")}
-    extra_us = (per_launch["nms_fixed"] - per_launch["nms_fixed_one_round"]) / max(timing["picks"] - 1, 1) * 1e3
+    per_launch = {k: stages[k]["device_ms"] / stages[k]["kernels"] if stages[k]["kernels"] else None
+                  for k in ("nms_fixed", "nms_fixed_one_round")}
+    extra_us = (None if None in per_launch.values() else
+                (per_launch["nms_fixed"] - per_launch["nms_fixed_one_round"]) / max(timing["picks"] - 1, 1) * 1e3)
     emit("yolo_device", wall_ms_per_frame=wall, device_ms_per_frame=whole,
          device_idle_share=1 - whole / wall, kernels_per_frame=stages["device_decode"]["kernels"],
          split_device_ms=split, stages=stages, nms=timing,
@@ -1641,7 +1677,7 @@ def phase_bins(dev):
     fetch writes shm.bins_pose visible with >= 8 inliers within
     BINS_PLATE_PX of the plate; the chain on the card synchronises nowhere
     (torch's sync debug mode). Then the chain's event-timed wall ms, fps
-    over five 2 s windows, wrapper calls per frame, and the host leg's ms
+    over three 2 s windows, wrapper calls per frame, and the host leg's ms
     (contours + rectangles; ratio test + RANSAC)."""
     from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import bins_frame
     from cuauv_vision_pipeline_tpu_torch.core import shm
@@ -1841,7 +1877,7 @@ def phase_stereo(dev):
     exact, centroid within 1e-3 px; one label_cuda_batched and one
     fused_morph launch per call; no host sync in the chain (torch's sync
     debug mode, with a one-value read as the control). Then event-timed
-    wall ms per call and fps (frames = 2 per call) over five 2 s windows;
+    wall ms per call and fps (frames = 2 per call) over three 2 s windows;
     the device profile comes after the main path (phase_stereo_device)."""
     from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
     from cuauv_vision_pipeline_tpu_torch.modules.red_buoy_stereo import BuoyStereo
@@ -1954,7 +1990,7 @@ def phase_multicam(dev):
     other) valid equal. (b) The serving model (bf16): exactly one nms_fixed
     launch per dispatch, at B = 2; the cross-camera merge of its [2, 32, 6]
     detections on the card equal to the merge on the CPU (the plain NMS);
-    event-timed ms per dispatch of two cameras, fps over five 2 s windows,
+    event-timed ms per dispatch of two cameras, fps over three 2 s windows,
     and the merge's ms."""
     from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
     from cuauv_vision_pipeline_tpu_torch.models.yolo.predictor import YoloModel
@@ -2134,7 +2170,7 @@ def phase_correction(dev):
     synchronises the host (torch's sync debug mode, a one-value read the
     control); the preprocessor's stack with every stage but balance and the
     noise card against CPU, exact. Then balance's event-timed wall ms and fps per
-    frame (five windows of CORRECTION_FPS_WINDOW_S) at 720p and 1080p; the
+    frame (three windows of CORRECTION_FPS_WINDOW_S) at 720p and 1080p; the
     device profile comes after the main path (phase_correction_device)."""
     from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
     from cuauv_vision_pipeline_tpu_torch.ops.balance import BalanceConfig, balance
@@ -2225,6 +2261,141 @@ def phase_correction_device(card, stack, wall_ms):
                      "stages": stages}
     out["preprocessor_stack_720p"] = profile_fn(lambda: stack.stages(card["720p"][0]))
     emit("correction_device", **out)
+
+
+# the library phase: Canny's thresholds, the adaptive window, k-means, the
+# undistort camera (a ZED-like 1080p lens); white balance and undistort
+# card against CPU within 1 count on at most this share of a frame
+LIB_CANNY = (30, 90)
+LIB_ADAPTIVE_K, LIB_ADAPTIVE_BIAS = 11, 2.0
+LIB_KMEANS_K, LIB_KMEANS_ITERS = 4, 10
+LIB_HSV = ((0, 100, 100), (10, 255, 255))  # the red disc
+LIB_CAMERA = {"camera_matrix": {"fx": 1400.0, "fy": 1400.0, "cx": 960.0, "cy": 540.0},
+              "distortion": {"k1": -0.2, "k2": 0.05, "p1": 0.001, "p2": -0.001},
+              "image_size": {"width": W, "height": H}}
+LIB_U8_SHARE = 1e-4
+LIB_KMEANS_ATOL, LIB_KMEANS_RTOL = 1e-4, 1e-5  # centres, compactness
+
+
+def phase_library(dev, smi: str):
+    """The feature, threshold and colour library (``ops/feature``,
+    ``ops/threshold``, ``utils/color``, ``utils/undistort``,
+    ``engine/chains.HsvMaskPipeline``) on one 1080p ZED frame, card
+    against the same calls on the CPU: Canny L1 and L2 (and a [2, H, W]
+    stack through ``label_cuda_batched``), the Hough votes and
+    ``find_lines`` on its edges, ``HsvMaskPipeline.run_sync`` (masks and
+    every stat), the threshold family, ``otsu`` and the adaptive thresholds
+    exact; ``kmeans`` labels exact, centres within LIB_KMEANS_ATOL,
+    compactness within LIB_KMEANS_RTOL; ``white_balance_bgr`` and
+    ``undistort`` within 1 count on at most LIB_U8_SHARE of the frame; no
+    host sync inside ``canny``. Then per function the event-timed wall ms
+    (around the call as a user makes it: the numpy entry points include
+    their copies to and from the card), device ms, CUDA kernels per call
+    and the idle share (torch.profiler), beside the card's name and power
+    limit."""
+    from cuauv_vision_pipeline_tpu_torch.engine.chains import HsvMaskPipeline
+    from cuauv_vision_pipeline_tpu_torch.ops import color as C
+    from cuauv_vision_pipeline_tpu_torch.ops import feature as F
+    from cuauv_vision_pipeline_tpu_torch.ops import threshold as T
+    from cuauv_vision_pipeline_tpu_torch.utils import color as UC
+    from cuauv_vision_pipeline_tpu_torch.utils import undistort as U
+
+    frames = zed_frames(2)
+    frame = frames[0]
+    gray_cpu = C.bgr_to_gray(torch.from_numpy(frame))
+    gray = gray_cpu.to(dev)
+    stack = torch.stack([C.bgr_to_gray(torch.from_numpy(f)) for f in frames]).to(dev)
+    bgr = torch.from_numpy(frame).to(dev)
+    map_x, map_y = U.init_undistort_map(LIB_CAMERA)
+    hsv_card, hsv_cpu = HsvMaskPipeline(*LIB_HSV, device=dev), HsvMaskPipeline(*LIB_HSV, device="cpu")
+    lo, hi = LIB_CANNY
+    failures, checks = [], {}
+
+    def exact(name, got, want):
+        got, want = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x) for x in (got, want))
+        same = got.shape == want.shape and np.array_equal(got, want)
+        checks[name] = "exact" if same else "DIFFERS"
+        if not same:
+            failures.append(name)
+
+    def u8_close(name, got, want):
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        checks[name] = {"max_abs_err": int(d.max()), "share_off": float((d > 0).mean())}
+        if d.max() > 1 or (d > 0).mean() > LIB_U8_SHARE:
+            failures.append(name)
+
+    edges, edges_cpu = {}, {}
+    for name, l2 in (("canny_l1", False), ("canny_l2", True)):
+        edges[name] = F.canny(gray, lo, hi, l2)
+        edges_cpu[name] = F.canny(gray_cpu, lo, hi, l2)
+        exact(name, edges[name], edges_cpu[name])
+    # the stack's first image is ``gray``: only the second needs the CPU
+    exact("canny_b2", F.canny(stack, lo, hi),
+          torch.stack([edges_cpu["canny_l1"], F.canny(stack[1].cpu(), lo, hi)]))
+    syncs = host_syncs(lambda: F.canny(gray, lo, hi))
+    checks["canny_host_syncs"] = len(syncs)
+    if syncs:
+        failures.append(f"canny synchronised: {syncs}")
+    edges_np = edges["canny_l1"].cpu().numpy()
+    for got, want, what in zip(F.hough_lines_accumulator(edges["canny_l1"]),
+                               F.hough_lines_accumulator(torch.from_numpy(edges_np)), ("votes", "thetas", "rhos")):
+        exact(f"hough_{what}", got, want)
+    exact("find_lines", F.find_lines(edges_np, device=dev), F.find_lines(edges_np, device="cpu"))
+    got, want = hsv_card.run_sync(frame), hsv_cpu.run_sync(frame)
+    exact("hsv_mask", got[0], want[0])
+    exact("hsv_cleaned", got[1], want[1])
+    for key in want[2]:
+        exact(f"hsv_stats_{key}", got[2][key], want[2][key])
+    checks["hsv_components"] = int(got[2]["count"])
+    ops = {
+        "binary": lambda t: T.binary(t, 100), "binary_inv": lambda t: T.binary_inv(t, 100),
+        "truncate": lambda t: T.truncate(t, 100), "to_zero": lambda t: T.to_zero(t, 100),
+        "to_zero_inv": lambda t: T.to_zero_inv(t, 100), "histogram_u8": T.histogram_u8,
+        "otsu_t": lambda t: T.otsu(t)[0], "otsu_mask": lambda t: T.otsu(t)[1],
+        "adaptive_mean": lambda t: T.adaptive_mean(t, LIB_ADAPTIVE_K, LIB_ADAPTIVE_BIAS),
+        "adaptive_gaussian": lambda t: T.adaptive_gaussian(t, LIB_ADAPTIVE_K, LIB_ADAPTIVE_BIAS),
+    }
+    for name, fn in ops.items():
+        exact(name, fn(gray), fn(gray_cpu))
+    exact("thresh_color_distance", torch.stack(T.thresh_color_distance(bgr, (20, 30, 200), 80.0, 10.0)),
+          torch.stack(T.thresh_color_distance(bgr.cpu(), (20, 30, 200), 80.0, 10.0)))
+    km_card = UC.kmeans(frame, LIB_KMEANS_K, LIB_KMEANS_ITERS, device=dev)
+    km_cpu = UC.kmeans(frame, LIB_KMEANS_K, LIB_KMEANS_ITERS, device="cpu")
+    exact("kmeans_labels", km_card[1], km_cpu[1])
+    centre_err = float(np.abs(km_card[2] - km_cpu[2]).max())
+    compact_err = abs(km_card[0] - km_cpu[0]) / abs(km_cpu[0])
+    checks["kmeans"] = {"centres_max_abs_err": centre_err, "compactness_rel_err": compact_err}
+    if centre_err > LIB_KMEANS_ATOL or compact_err > LIB_KMEANS_RTOL:
+        failures.append("kmeans")
+    for blur in (0, 5):
+        u8_close(f"white_balance_blur{blur}", UC.white_balance_bgr(frame, blur, device=dev),
+                 UC.white_balance_bgr(frame, blur, device="cpu"))
+    u8_close("undistort", U.undistort(frame, map_x, map_y, device=dev),
+             U.undistort(frame, map_x, map_y, device="cpu"))
+    if failures:
+        emit("library_checks", checks=checks)
+        raise AssertionError(f"library: card differs from the CPU in {failures}")
+
+    timed = {
+        "canny_l1": (lambda: F.canny(gray, lo, hi), 20),
+        "canny_l2": (lambda: F.canny(gray, lo, hi, True), 20),
+        "find_lines": (lambda: F.find_lines(edges_np, device=dev), 5),
+        "hsv_mask_pipeline_run_sync": (lambda: hsv_card.run_sync(frame), 10),
+        "adaptive_mean_11": (lambda: T.adaptive_mean(gray, LIB_ADAPTIVE_K, LIB_ADAPTIVE_BIAS), 20),
+        "adaptive_gaussian_11": (lambda: T.adaptive_gaussian(gray, LIB_ADAPTIVE_K, LIB_ADAPTIVE_BIAS), 10),
+        "otsu": (lambda: T.otsu(gray), 20),
+        "undistort_bgr": (lambda: U.undistort(frame, map_x, map_y, device=dev), 10),
+        "kmeans_k4_10it": (lambda: UC.kmeans(frame, LIB_KMEANS_K, LIB_KMEANS_ITERS, device=dev), 3),
+        "white_balance_bgr": (lambda: UC.white_balance_bgr(frame, device=dev), 10),
+    }
+    times = {}
+    for name, (fn, reps) in timed.items():
+        wall = cuda_ms(fn, reps, warmup=1)
+        prof = profile_fn(fn, n=reps)
+        times[name] = {"wall_ms": wall, "device_ms": prof["device_ms"], "kernels": prof["kernels"],
+                       "device_idle_share": 1 - prof["device_ms"] / wall, "top_device_ms": prof["top_device_ms"][:4]}
+    emit("library", card=smi, frame=f"{W}x{H} zed forward plane", canny_edges=int((edges_np > 0).sum()),
+         checks=checks, times=times)
 
 
 # the train phase: bench.py's train step cell (YOLOv8n, batch 16, 320 px,
@@ -2838,7 +3009,8 @@ def main() -> int:
                     "yolo": ("nms_fixed",), "yolo_tasks": ("nms_fixed",),
                     "bins": ("fused_morph", "spacing_select"),
                     "stereo": ("label_cuda_batched", "fused_morph"), "multicam": ("nms_fixed",),
-                    "correction": (), "train": ("nms_fixed",)}
+                    "correction": (), "train": ("nms_fixed",),
+                    "library": ("label_cuda", "label_cuda_batched", "fused_morph")}
     counts = dict.fromkeys(launch_counts(), 0)
 
     def run_path(path, drive):
@@ -2864,6 +3036,7 @@ def main() -> int:
         if key.endswith("_launches"):
             for name, n in launched.items():
                 counts[name] += n
+    run_path("library", lambda: phase_library(dev, smi))
     for name, n in counts.items():
         assert n > 0, f"{name} was not launched on the main path"
     phase_ccl_device(ccl_inputs)

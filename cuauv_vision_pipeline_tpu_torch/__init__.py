@@ -9,11 +9,16 @@ both packages share one bus.
 * ``native/``   — the C++ shared-memory frame bus, built with g++ at first use.
 * ``core/``     — module framework (ModuleBase/@device_fn, tuners, shm, bus
                   binding over ctypes, capture-source harness).
-* ``ops/``      — colorspace, threshold, morphology and connected components
-                  as torch ops; ``ops/cuda/`` wraps the CUDA kernels of
-                  ``csrc/`` (CCL union-find, fused 5x5 morphology).
-* ``engine/``   — the red_buoy chain and the depth-N stream executor.
-* ``capture_sources/``, ``modules/`` — the synthetic camera and red_buoy.
+* ``ops/``      — colorspace, threshold, morphology, connected components,
+                  Canny/Hough/keypoints, balance and transforms as torch
+                  ops; ``ops/cuda/`` wraps the CUDA kernels of ``csrc/``
+                  (CCL union-find, fused 5x5 morphology, NMS, spacing).
+* ``engine/``   — the red_buoy and HSV mask chains and the depth-N stream
+                  executor.
+* ``utils/``    — the numpy-in/numpy-out library (color, feature, transform,
+                  undistort, contours, drawing, SIFT pose).
+* ``capture_sources/``, ``modules/``, ``models/`` — cameras, the vision
+                  modules and YOLO.
 
 Entry points run on ``cuda`` unless ``--device cpu`` is given.
 """

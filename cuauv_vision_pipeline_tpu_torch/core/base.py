@@ -30,7 +30,8 @@ Differences from the reference:
   defensive copy (the reference copied twice, base.py:761-768);
 * an optional ``device_fn`` fast path: a module may register a torch chain
   over its frame bundle, and ModuleBase runs it on the module's device
-  (``--device N``, or ``--device cpu``; CUDA by default) through the engine
+  (``--device N``, or ``--device cpu``; ``$CUAUV_TPU_DEVICE`` when the flag
+  is absent; CUDA by default) through the engine
   with staging reuse (see engine/executor.py).
 
 Port of ``cuauv_vision_pipeline_tpu.core.base``; the bus, tuner and post
@@ -826,11 +827,12 @@ class ModuleBase(ABC):
         )
         parser.add_argument(
             "--device",
-            default=None,
+            default=os.environ.get("CUAUV_TPU_DEVICE"),
             help=(
-                "run this module's device chain on cuda:N (default 0), or "
-                "'cpu' to run it on the host; without a CUDA device and "
-                "without 'cpu' the module refuses to start"
+                "run this module's device chain on cuda:N (default 0, or "
+                "$CUAUV_TPU_DEVICE, which a launcher sets to pin one module "
+                "per device), or 'cpu' to run it on the host; without a CUDA "
+                "device and without 'cpu' the module refuses to start"
             ),
         )
         parser.add_argument(

@@ -1,18 +1,22 @@
-"""The red_buoy device chain on torch tensors.
+"""The device chains on torch tensors.
 
-Port of ``cuauv_vision_pipeline_tpu.engine.chains`` (``red_buoy_chain``,
-``red_buoy_fused``, ``RedBuoyPipeline``); reference modules/red_buoy.py:18-52.
-PyTorch runs eagerly, so a chain is a plain function over tensors on one
-device; thresholds are Python/numpy scalars (a tuner change costs nothing).
-Every function takes ``[H, W, 3]`` or a batch ``[B, H, W, 3]`` of u8 BGR
-frames; a batch is one dimension written out (one CCL launch for all B
-frames), where the JAX package mapped the per-frame chain over lanes.
+Port of ``cuauv_vision_pipeline_tpu.engine.chains``: the red_buoy chain
+(``red_buoy_chain``, ``red_buoy_fused``, ``RedBuoyPipeline``; reference
+modules/red_buoy.py:18-52) and the HSV mask chain (``hsv_mask_chain``,
+``HsvMaskPipeline``; reference modules/bins.py:10-81) with the gray post
+(``grayscale_post_chain``). PyTorch runs eagerly, so a chain is a plain
+function over tensors on one device; thresholds are Python/numpy scalars (a
+tuner change costs nothing). The red_buoy functions take ``[H, W, 3]`` or a
+batch ``[B, H, W, 3]`` of u8 BGR frames; a batch is one dimension written
+out (one CCL launch for all B frames), where the JAX package mapped the
+per-frame chain over lanes.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
@@ -79,3 +83,54 @@ class RedBuoyPipeline:
     def run_sync(self, image, tmin, tmax):
         """run_async, materialized as numpy (blocking)."""
         return tree_map(lambda t: t.cpu().numpy(), self.run_async(image, tmin, tmax))
+
+
+def _open(mask: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """Open with a square rect kernel: the fused CUDA kernel (one launch;
+    its composed plain version on the CPU) for the 5x5 it implements, the
+    composed ``ops.morphology`` calls for any other size."""
+    if kernel_size == 5:
+        return fused_morph(mask, "open")
+    return M.open_morph(mask, M.rect_kernel(kernel_size))
+
+
+def hsv_mask_chain(image, lower, upper, kernel_size: int = 5, max_components: int = 32):
+    """HSV inRange + open + per-component stats (the bins-module shape,
+    reference modules/bins.py:10-81): BGR -> HSV -> inRange(lower, upper) ->
+    open with a ``kernel_size`` rect -> labels of the cleaned mask (the
+    CUDA CCL kernel on the card) -> ``component_stats``.
+
+    Returns (mask, cleaned, stats)."""
+    mask = T.in_range(C.bgr_to_hsv(image), lower, upper)
+    cleaned = _open(mask, kernel_size)
+    stats = ccl.component_stats(ccl.label_fast(cleaned), max_components)
+    return mask, cleaned, stats
+
+
+def grayscale_post_chain(image: torch.Tensor) -> torch.Tensor:
+    """BGR -> gray -> back to BGR (the yolo module's inactive-object
+    fallback post, reference modules/yolo.py post_grayscale)."""
+    return C.gray_to_bgr(C.bgr_to_gray(image))
+
+
+class HsvMaskPipeline:
+    """The bins-module hot path on one device (``cuda:0`` unless told):
+    :func:`hsv_mask_chain` with fixed HSV bounds — on the card the fused
+    morphology kernel and the CCL kernel, one launch each."""
+
+    def __init__(self, lower, upper, kernel_size: int = 5, max_components: int = 32,
+                 device=None):
+        self.device = resolve_device(device)
+        self.lower = np.asarray(lower, np.uint8)
+        self.upper = np.asarray(upper, np.uint8)
+        self.kernel_size = kernel_size
+        self.max_components = max_components
+
+    def run_async(self, image):
+        """(mask, cleaned, stats) as device tensors, not waited for."""
+        return hsv_mask_chain(torch.as_tensor(image).to(self.device), self.lower, self.upper,
+                              self.kernel_size, self.max_components)
+
+    def run_sync(self, image):
+        """run_async, materialized as numpy (blocking)."""
+        return tree_map(lambda t: t.cpu().numpy(), self.run_async(image))

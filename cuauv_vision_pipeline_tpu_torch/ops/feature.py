@@ -1,13 +1,15 @@
-"""Keypoint detection and description on torch tensors.
+"""Feature detection on torch tensors: Canny, Hough lines, corners, keypoints.
 
-Port of the corner and keypoint half of ``cuauv_vision_pipeline_tpu.ops.
-feature`` (reference utils/feature.py:104-125 and the device front end of
-the bins pose flow): Sobel gradients, the Shi-Tomasi response, the host
-``find_corners``, and ``detect_describe`` — response, window NMS, a
-two-stage top-k, greedy min-distance spacing (the CUDA kernel
-``ops/cuda/spacing_kernel.py`` on the card) and oriented 128-D descriptors
-— as one chain of device ops with no host sync. Canny, Hough and the
-integer Sobel are not ported yet.
+Port of ``cuauv_vision_pipeline_tpu.ops.feature`` (reference
+utils/feature.py:43-237 and the device front end of the bins pose flow):
+Sobel gradients; Canny, bit-exact against cv2.Canny, its hysteresis one
+connected-component labeling of the candidate mask (``ops/ccl.label_fast``:
+the CUDA union-find kernel on the card); the Hough line accumulator (integer
+votes, the same on every device) and the host peak pick of ``find_lines``;
+the Shi-Tomasi response and ``find_corners``; and ``detect_describe`` —
+response, window NMS, a two-stage top-k, greedy min-distance spacing (the
+CUDA kernel ``ops/cuda/spacing_kernel.py`` on the card) and oriented 128-D
+descriptors — as one chain of device ops with no host sync.
 
 Numbers follow the JAX package's f32 arithmetic operation for operation:
 a division by a constant is a multiplication by its float32 reciprocal (as
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.device import full_f32
+from ..core.device import DeviceLike, full_f32, resolve_device, run_np
+from .ccl import label_fast
 from .cuda.spacing_kernel import spacing_select
 from .ieee import recip_f32 as _recip
 
@@ -128,11 +131,13 @@ def find_corners(
     max_corners: int,
     quality_thresh: float = 0.01,
     min_distance: int = 10,
+    device: DeviceLike = None,
 ) -> np.ndarray:
-    """cv2.goodFeaturesToTrack equivalent (reference utils/feature.py:104-125)
-    on the host: the response in torch on the CPU, the rest in numpy.
+    """cv2.goodFeaturesToTrack equivalent (reference utils/feature.py:104-125):
+    the response on ``device`` (cuda:0 unless told ``cpu``; bit-equal on
+    every device), the 3x3 NMS and the spacing on the host in numpy.
     Returns [N, 1, 2] float32 (x, y) like cv2."""
-    resp = min_eigenvalue_map(torch.as_tensor(np.asarray(gray))).numpy()
+    resp = run_np(min_eigenvalue_map, np.asarray(gray), device)
     thresh = resp.max() * quality_thresh
     # 3x3 NMS
     padded = np.pad(resp, 1, constant_values=-np.inf)
@@ -161,6 +166,200 @@ def find_corners(
     if not selected:
         return np.empty((0, 1, 2), np.float32)
     return np.array([[[float(x), float(y)]] for y, x in selected], dtype=np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Canny and the Hough line accumulator
+# ---------------------------------------------------------------------------
+
+
+def _sobel_3x3_int(image_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact 3x3 Sobel dx/dy on int32 with BORDER_REPLICATE — the CV_16S
+    gradients cv2.Canny computes (sums of at most 4*255 in magnitude, so
+    the float32 Sobel of the u8 values is exact)."""
+    gx, gy = _sobel_3x3(image_u8.to(torch.float32))
+    return gx.to(torch.int32), gy.to(torch.int32)
+
+
+def canny_prep_thresholds(lower: float, upper: float, l2_gradient: bool) -> Tuple[int, int]:
+    """cv2's host-side threshold prep (canny.cpp): swap, L2 squares +
+    clamps, then cvFloor to int."""
+    lo, hi = float(lower), float(upper)
+    if lo > hi:
+        lo, hi = hi, lo
+    if l2_gradient:
+        lo, hi = min(32767.0, lo), min(32767.0, hi)
+        if lo > 0:
+            lo *= lo
+        if hi > 0:
+            hi *= hi
+    return int(math.floor(lo)), int(math.floor(hi))
+
+
+def canny(image: torch.Tensor, lower: float, upper: float, l2_gradient: bool = False) -> torch.Tensor:
+    """Canny edge detector, bit-exact vs cv2.Canny (aperture 3), on u8
+    ``[H, W]`` or ``[B, H, W]`` grayscale: u8 {0, 255} edges."""
+    low, high = canny_prep_thresholds(lower, upper, l2_gradient)
+    return canny_core(image, low, high, l2_gradient)
+
+
+def canny_core(image: torch.Tensor, low, high, l2_gradient: bool = False) -> torch.Tensor:
+    """canny() after threshold prep; ``low``/``high`` are ints or 0-d
+    tensors on the image's device.
+
+    cv2's u8 path end to end: the candidate and strong masks of
+    :func:`_canny_masks`, then cv2's hysteresis, a DFS from the strong
+    pixels whose result is the set of candidates 8-connected to a strong
+    pixel: here one labeling of the candidate mask (:func:`_hysteresis`),
+    with no host read and no pass count."""
+    return _hysteresis(*_canny_masks(image, low, high, l2_gradient)).to(torch.uint8) * 255
+
+
+def _canny_masks(image: torch.Tensor, low, high, l2_gradient: bool = False):
+    """(candidates, strong) bool masks of cv2.Canny before hysteresis: exact
+    int32 Sobel with replicate border, integer L1 (or squared-L2) magnitude,
+    NMS against a zero-padded magnitude with the TG22 = 13573 fixed-point
+    sector boundaries and cv2's mix of strict and non-strict neighbour
+    comparisons, candidates ``mag > low``, strong pixels ``mag > high``."""
+    dx, dy = _sobel_3x3_int(image)
+    mag = dx * dx + dy * dy if l2_gradient else dx.abs() + dy.abs()
+
+    # cv2 pads every magnitude row with 0 at both ends and treats rows
+    # above/below the image as all-zero — border pixels compare against 0
+    mp = F.pad(mag, (1, 1, 1, 1))
+    H, W = mag.shape[-2], mag.shape[-1]
+
+    def sl(dy_, dx_):
+        return mp[..., dy_ + 1 : dy_ + 1 + H, dx_ + 1 : dx_ + 1 + W]
+
+    # sector quantization in cv2's fixed point: y*2^15 vs x*TG22 / x*TG67
+    TG22 = 13573  # tan(22.5deg) * 2^15, rounded
+    ax = dx.abs()
+    ay15 = dy.abs() << 15
+    tg22x = ax * TG22
+    tg67x = tg22x + ((ax + ax) << 15)
+
+    horizontal = ay15 < tg22x
+    vertical = ay15 > tg67x
+    same_sign = (dx ^ dy) >= 0  # cv2: s = (xs ^ ys) < 0 ? -1 : 1
+
+    keep_h = (mag > sl(0, -1)) & (mag >= sl(0, 1))
+    keep_v = (mag > sl(-1, 0)) & (mag >= sl(1, 0))
+    keep_d1 = (mag > sl(-1, -1)) & (mag > sl(1, 1))  # s=+1: both strict
+    keep_d2 = (mag > sl(-1, 1)) & (mag > sl(1, -1))  # s=-1: both strict
+    keep = torch.where(
+        horizontal, keep_h, torch.where(vertical, keep_v, torch.where(same_sign, keep_d1, keep_d2))
+    )
+
+    cand = keep & (mag > low)  # cv2 gates NMS on m > low
+    return cand, cand & (mag > high)
+
+
+def _hysteresis(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
+    """The candidates whose 8-connected candidate component holds a strong
+    pixel: label the candidates (``label_fast``; ``[H, W]`` or a stack in
+    one call), count the strong pixels under each root by a segment sum,
+    and keep a candidate whose root counts any. Exact whatever the
+    component's length (the JAX package's min-propagation stops after 64
+    passes). Only strong pixels add to their root; every other pixel adds
+    0 at its own index, so no two of them meet at one address (an atomic
+    add per pixel, contended only within a component's strong pixels)."""
+    H, W = cand.shape[-2], cand.shape[-1]
+    hw = H * W
+    labels = label_fast(cand if cand.ndim == 2 else cand.reshape(-1, H, W), 8)
+    n = labels.numel() // hw
+    dev = labels.device
+    flat_cand, flat_strong = cand.reshape(n, hw), strong.reshape(n, hw)
+    own = torch.arange(n * hw, device=dev).view(n, hw)
+    base = torch.arange(n, device=dev)[:, None] * hw
+    # a candidate's root in the flat stack; a background pixel (label
+    # 2**30) stands for itself and is masked out below
+    roots = torch.where(flat_cand, labels.reshape(n, hw).to(torch.int64) + base, own)
+    hits = torch.zeros(n * hw, dtype=torch.int32, device=dev).index_add_(
+        0, torch.where(flat_strong, roots, own).reshape(-1), flat_strong.reshape(-1).to(torch.int32)
+    )
+    return (flat_cand & (hits[roots] > 0)).reshape(cand.shape)
+
+
+def _hough_tables(n_theta: int, theta_res: float):
+    """thetas[T] float32 as the JAX package makes them (``arange * res`` in
+    float32), and their cos and sin in float64 rounded to float32: one
+    table, so every device computes the same rho."""
+    thetas = np.arange(n_theta, dtype=np.float32) * np.float32(theta_res)
+    t64 = thetas.astype(np.float64)
+    return thetas, np.cos(t64).astype(np.float32), np.sin(t64).astype(np.float32)
+
+
+# votes in flight per chunk of thetas (int64 bins: 128 MB)
+_HOUGH_CHUNK = 1 << 24
+
+
+def hough_lines_accumulator(
+    edges: torch.Tensor, rho_res: float = 1.0, theta_res: float = math.pi / 180
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Standard Hough accumulator over an ``[H, W]`` edge mask, on its device.
+
+    Returns (acc[T, R] int32, thetas[T], rhos[R]); votes are edge-pixel
+    counts. Each edge pixel votes ``round(rho / rho_res)`` (half to even, as
+    ``jnp.round``) with ``rho = x*cos + y*sin`` in float32 (two roundings)
+    from the host's table: the votes are the same on every device, and the
+    JAX package's (its own cos/sin, its multiply-add fused) differ only for
+    pixels whose rho lies within an ulp or so of a half-integer bin edge.
+    Only the edge pixels vote (one ``nonzero``, a host sync), by integer
+    ``index_add_`` into ``[T*R]`` (exact in any order), a chunk of thetas at
+    a time."""
+    H, W = edges.shape[-2], edges.shape[-1]
+    dev = edges.device
+    n_rho = int(2 * math.ceil(math.hypot(H, W) / rho_res)) + 1
+    n_theta = int(round(math.pi / theta_res))
+    rho_offset = (n_rho - 1) // 2
+    thetas, cos, sin = _hough_tables(n_theta, theta_res)
+
+    yx = torch.nonzero(edges != 0).to(torch.float32)
+    ys, xs = yx[:, 0], yx[:, 1]
+    acc = torch.zeros(n_theta * n_rho, dtype=torch.int32, device=dev)
+    cos_t = torch.from_numpy(cos).to(dev)[:, None]
+    sin_t = torch.from_numpy(sin).to(dev)[:, None]
+    base = torch.arange(n_theta, device=dev)[:, None] * n_rho + rho_offset
+    step = max(1, _HOUGH_CHUNK // max(1, ys.numel()))
+    inv_res = _recip(rho_res)
+    for t0 in range(0, n_theta if ys.numel() else 0, step):
+        t1 = min(n_theta, t0 + step)
+        rho = xs * cos_t[t0:t1] + ys * sin_t[t0:t1]
+        bins = torch.round(rho * inv_res).to(torch.int64) + base[t0:t1]
+        acc.index_add_(0, bins.reshape(-1), torch.ones(1, dtype=torch.int32, device=dev).expand(bins.numel()))
+    rhos = (np.arange(n_rho, dtype=np.float32) - rho_offset) * np.float32(rho_res)
+    return acc.view(n_theta, n_rho), torch.from_numpy(thetas).to(dev), torch.from_numpy(rhos).to(dev)
+
+
+def find_lines(
+    edges: np.ndarray,
+    rho_res: float = 1.0,
+    theta_res: float = math.pi / 180,
+    threshold: int = 100,
+    max_lines: int = 64,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """cv2.HoughLines equivalent: returns [N, 2] (rho, theta) of peaks over
+    ``threshold``, strongest first (reference utils/feature.py find_lines).
+    The accumulator on ``device`` (cuda:0 unless told ``cpu``), the peak
+    pick on the host."""
+    edges_t = torch.from_numpy(np.ascontiguousarray(edges)).to(resolve_device(device))
+    acc, thetas, rhos = (t.cpu().numpy() for t in hough_lines_accumulator(edges_t, rho_res, theta_res))
+    # local maxima over the 4-neighborhood like cv2
+    padded = np.pad(acc, 1)
+    center = padded[1:-1, 1:-1]
+    is_peak = (
+        (center >= padded[1:-1, :-2])
+        & (center >= padded[1:-1, 2:])
+        & (center >= padded[:-2, 1:-1])
+        & (center >= padded[2:, 1:-1])
+        & (center > threshold)
+    )
+    ti, ri = host_nonzero2d(is_peak)
+    votes = center[ti, ri]
+    order = np.argsort(-votes)[:max_lines]
+    return np.stack([rhos[ri[order]], thetas[ti[order]]], axis=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -250,7 +250,7 @@ def _builtin_detect_and_compute(gray: np.ndarray, max_keypoints: int = 500):
     Shi-Tomasi keypoints + 4x4-cell gradient-orientation histograms (a
     SIFT-like 128-D descriptor), on the host. Not scale invariant; adequate
     for the planar-target matching the reference uses it for."""
-    pts = find_corners(gray, max_keypoints, 0.01, 8).reshape(-1, 2)
+    pts = find_corners(gray, max_keypoints, 0.01, 8, device="cpu").reshape(-1, 2)
     gx, gy = _sobel_3x3(torch.as_tensor(np.asarray(gray), dtype=torch.float32))
     gx = gx.numpy()
     gy = gy.numpy()

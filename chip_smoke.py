@@ -182,12 +182,33 @@ no result):
              ``undistort`` within 1 count on at most 1e-4 of the frame; no
              host sync inside ``canny``; per function wall ms, device ms,
              kernels per call and idle share.
+16. orchestration — the vehicle's orchestration path (run after
+             ``module``): ``capture_sources.zed`` as a subprocess under the
+             ZED SDK's test double (``tests/fake_sdk``: HD720 buoy frames,
+             depth and normals with NaN and +-inf holes), its postprocess on
+             cuda:0 and equal bit for bit to the CPU's on the double's
+             frames; a ``ModuleToggler`` and the web viewer in this process,
+             the viewer's toggles starting ``modules.red_buoy`` and
+             ``modules.poster`` pinned to device 0 (``Device: cuda:0`` in
+             both logs), ``shm.red_buoy_results`` at the whole frame (and
+             through ``GET /shm/red_buoy_results``), a JPEG part from each
+             module's MJPEG stream, ``shm.poster_status`` advancing with a
+             latency; red_buoy stopped on SIGINT to its group and reaped
+             (its logged ``label_cuda`` and ``fused_morph`` launches, the
+             kernel records of ``csrc/ccl.cu`` and ``csrc/morph.cu`` in its
+             ``$CUAUV_TORCH_PROFILE_DIR`` trace), poster stopped by the
+             toggle-off's SIGTERM within ``STOP_GRACE_S``, the blocks each
+             left listed; ms from toggle-on to the first result (with its
+             legs) and from toggle-off to the exit, red_buoy's
+             ``latency_ms`` and the source's postprocess EMA per frame with
+             its bytes each way.
 
 Launch counts are set to 0 just before each path (the chain phase, the
 YOLO phase, the yolo_tasks phase, the bins phase, the stereo phase, the multicam phase, the
 correction phase, whose path has no hand kernel, the train phase, the
 library phase) and read
-just after it; with the module processes' own logged counts they are the
+just after it; with the module processes' own logged counts (the module
+and orchestration phases) they are the
 main path's launches, and each kernel of a path must have launched in that
 path's run. Then the CCL kernels', the morphology's, the YOLO path's
 (preamble, conv stack, decode, NMS), the bins path's (per stage), the
@@ -2952,6 +2973,252 @@ def phase_module(run_id: str):
     return out
 
 
+# the orchestration phase: the ZED source under the SDK's test double, the
+# toggler flipped through the web viewer, red_buoy and poster pinned to cuda:0
+FAKE_ZED = REPO / "tests" / "fake_sdk"
+CCL_KERNELS = re.compile(r"\b(local|border|final)_kernel\b")  # csrc/ccl.cu
+MORPH_KERNELS = re.compile(r"\bmorph_kernel\b")  # csrc/morph.cu
+ORCH_SAMPLE_S = 4.0  # red_buoy latency_ms samples under the toggler
+
+
+def trace_kernels(path: Path) -> dict:
+    """Kernel records of a torch.profiler Chrome trace: all, and those of
+    csrc/ccl.cu and csrc/morph.cu."""
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"kernels": len(names), "ccl_cu": sum(bool(CCL_KERNELS.search(n)) for n in names),
+            "morph_cu": sum(bool(MORPH_KERNELS.search(n)) for n in names), "bytes": path.stat().st_size}
+
+
+def phase_orchestration(run_id: str, smi: str) -> dict:
+    """The vehicle's orchestration path on the card: ``capture_sources.zed``
+    as a subprocess under the ZED SDK's test double (``tests/fake_sdk``,
+    HD720 buoy frames, depth and normals with holes), its postprocess on
+    cuda:0; in this process a ``ModuleToggler`` with red_buoy and poster on
+    that camera, both pinned to device 0, and the web viewer on
+    127.0.0.1; the viewer's toggles start both modules as subprocesses.
+    Checks: each module's log says ``Device: cuda:0``;
+    ``shm.red_buoy_results`` has the whole frame's area (default tuners),
+    as ``GET /shm/red_buoy_results`` does; the viewer's MJPEG streams give
+    a JPEG part of each module; ``shm.poster_status.frames_posted`` advances
+    with ``latency_ema_sec > 0``; ``_postprocess_fn`` on the card equals
+    the CPU's bit for bit on the double's frames. Then red_buoy stops on
+    SIGINT to its group (the toggler reaps it; its log's launch counts hold
+    ``label_cuda`` and ``fused_morph``; its ``$CUAUV_TORCH_PROFILE_DIR``
+    trace is counted), the toggle-off stops poster by the toggler's SIGTERM
+    within ``STOP_GRACE_S``, and the blocks each module left are listed.
+    Prints ms from toggle-on to the first result, from toggle-off to the
+    exit, red_buoy's ``latency_ms`` (median, min, max) and the source's
+    postprocess EMA per HD720 frame with its bytes each way."""
+    import http.client
+    import importlib.util
+    from http.server import ThreadingHTTPServer
+
+    from cuauv_vision_pipeline_tpu_torch.capture_sources.zed import _postprocess_fn
+    from cuauv_vision_pipeline_tpu_torch.core import shm
+    from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BLOCK_STUB
+    from cuauv_vision_pipeline_tpu_torch.core.config import vehicle
+    from cuauv_vision_pipeline_tpu_torch.core.module_toggler import ModuleToggler
+    from cuauv_vision_pipeline_tpu_torch.misc import web_viewer
+
+    direction = f"smoke_{run_id}_zed"
+    logs = REPO / "smoke_logs" / f"orch_{run_id}"
+    profile_dir = logs / "profile"
+    logs.mkdir(parents=True, exist_ok=True)
+    for name in ("red_buoy_results", "poster_status", "zed_metrics", "vision_modules"):
+        shm.delete_group(name)  # fresh groups in this run's namespace
+    results, poster, metrics = shm.red_buoy_results, shm.poster_status, shm.zed_metrics
+    results.set(visible=False, area=0.0, latency_ms=0.0)
+    poster.set(frames_posted=0, latency_ema_sec=0.0)
+    metrics.set(postprocess_sec=0.0, start_time_sec=0.0)
+    spec = importlib.util.spec_from_file_location("fake_pyzed_sl", FAKE_ZED / "pyzed" / "sl.py")
+    sl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sl)
+
+    saved_env = {k: os.environ.get(k) for k in ("CUAUV_LOG", "CUAUV_TORCH_PROFILE_DIR", "PYTHONPATH")}
+    saved_vehicle = (vehicle.vision_modules, vehicle.module_devices)
+    source_log = open(logs / "zed_source.log", "w")
+    source = subprocess.Popen(
+        [sys.executable, "-m", "cuauv_vision_pipeline_tpu_torch.capture_sources.zed", direction], cwd=REPO,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join([str(REPO), str(FAKE_ZED)])},
+        stdout=source_log, stderr=subprocess.STDOUT)
+    toggler = server = None
+    out = {"nvidia_smi": smi}
+
+    def wait_for(cond, timeout, what):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if source.poll() is not None:
+                raise RuntimeError(f"the zed source exited ({source.returncode}) while waiting for {what}")
+            if toggler is not None:
+                for entry in toggler.running.values():
+                    if entry.process.poll() is not None:
+                        raise RuntimeError(f"{entry.name} exited ({entry.process.returncode}) waiting for {what}")
+            if cond():
+                return
+            time.sleep(0.01)
+        raise TimeoutError(f"timed out waiting for {what}")
+
+    def request(method, path):
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=30)
+        conn.request(method, path)
+        response = conn.getresponse()
+        body = response.read()
+        conn.close()
+        assert response.status == 200, (method, path, response.status)
+        return body
+
+    def first_jpeg(path):
+        """The first JPEG part of the viewer's MJPEG stream ``path``."""
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=30)
+        conn.request("GET", path)
+        response = conn.getresponse()
+        buf, deadline = b"", time.monotonic() + 30
+        while time.monotonic() < deadline:
+            buf += response.read1(1 << 16)
+            start = buf.find(b"\xff\xd8")
+            end = buf.find(b"\xff\xd9", start + 2) if start >= 0 else -1
+            if end >= 0:
+                conn.close()
+                return len(buf[start:end + 2])
+        conn.close()
+        raise TimeoutError(f"no JPEG part from {path}")
+
+    def module_log(module):
+        return (logs / "current" / f"{module}@{direction}-module.log").read_text()
+
+    try:
+        # the card's postprocess against the CPU's while the source starts
+        card, cpu = _postprocess_fn("cuda:0"), _postprocess_fn("cpu")
+        for k in range(sl.CYCLE):
+            frame = sl.frame(k)
+            for got, want in zip(card(*frame), cpu(*frame)):
+                assert got.dtype == want.dtype and got.shape == want.shape
+                assert np.array_equal(got.view(np.uint8), want.view(np.uint8)), f"postprocess frame {k}"
+        out["postprocess_card_equals_cpu"] = {"frames": sl.CYCLE, "planes": 4}
+        out["postprocess_bytes_up"] = sum(a.nbytes for a in sl.frame(0))
+        out["postprocess_bytes_down"] = sum(a.nbytes for a in cpu(*sl.frame(0)))
+
+        os.environ.update(CUAUV_LOG=str(logs), CUAUV_TORCH_PROFILE_DIR=str(profile_dir), PYTHONPATH=str(REPO))
+        vehicle.vision_modules = {"red_buoy": [direction], "poster": [direction]}
+        vehicle.module_devices = {"red_buoy": {direction: 0}, "poster": {direction: 0}}
+        toggler = ModuleToggler()
+        server = ThreadingHTTPServer(("127.0.0.1", 0), web_viewer.Handler)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        wait_for(lambda: metrics.start_time_sec.get() > 0, 120, "the zed source's first frame")
+
+        t_on = time.monotonic()
+        for module in ("red_buoy", "poster"):
+            assert json.loads(request("POST", f"/toggle/{module}/{direction}?on=true"))["on"] is True
+        toggler.sync()
+        assert sorted(toggler.running) == [f"poster_{direction}", f"red_buoy_{direction}"], toggler.running
+        # the cold start's legs, from red_buoy's log as it grows: the
+        # interpreter, torch and the module up to its Device line, the
+        # profiler's start, then the first frame through the chain
+        legs = {}
+        for leg, line in (("device_line", "Device: "), ("profiler_started", "torch.profiler trace")):
+            wait_for(lambda: line in module_log("red_buoy"), 120, f"red_buoy's '{line}' line")
+            legs[leg] = (time.monotonic() - t_on) * 1e3
+        wait_for(lambda: results.area.get() > 0, 120, "red_buoy's first result")
+        out["toggle_on_to_first_result_ms"] = (time.monotonic() - t_on) * 1e3
+        out["toggle_on_legs_ms"] = legs
+        wait_for(lambda: poster.frames_posted.get() >= 3, 60, "poster's frames")
+        for module in ("red_buoy", "poster"):
+            device_line = re.search(r"Device: (\S+) \((.*)\)", module_log(module))
+            assert device_line and device_line.group(1) == "cuda:0", module_log(module)[-2000:]
+            out[f"{module}_device"] = device_line.group(0)
+        out["area_default_tuners"] = results.area.get()
+        assert out["area_default_tuners"] == sl.HEIGHT * sl.WIDTH, out
+        assert json.loads(request("GET", "/shm/red_buoy_results"))["area"] == out["area_default_tuners"]
+        out["jpeg_bytes"] = {post: first_jpeg(f"/stream/{post}")
+                             for post in (f"BuoyLAB-on-{direction}/contours", f"Poster-on-{direction}/forward")}
+        seen, latencies = results.seq, []
+        deadline = time.monotonic() + ORCH_SAMPLE_S
+        while time.monotonic() < deadline:
+            if results.seq != seen:
+                seen = results.seq
+                latencies.append(results.latency_ms.get())
+            time.sleep(0.005)
+        assert len(latencies) >= 5, latencies
+        out["red_buoy_latency_ms"] = {"median": statistics.median(latencies), "min": min(latencies),
+                                      "max": max(latencies), "samples": len(latencies)}
+        status = poster.get()
+        assert status.frames_posted > 3 and status.latency_ema_sec > 0, status
+        out["poster"] = {"frames_posted": status.frames_posted, "latency_ema_ms": status.latency_ema_sec * 1e3}
+        zed = metrics.get()
+        out["zed_metrics"] = {"fps": zed.fps, "acquisition_ms": zed.acquisition_sec * 1e3,
+                              "postprocess_ms": zed.postprocess_sec * 1e3,
+                              "postprocess_percent": zed.postprocess_percent}
+        assert zed.postprocess_sec > 0, zed
+
+        # red_buoy: SIGINT to its group, a clean exit the toggler reaps
+        buoy = toggler.running[f"red_buoy_{direction}"].process
+        os.killpg(os.getpgid(buoy.pid), signal.SIGINT)
+        buoy.wait(timeout=60)
+        toggler._reap()
+        assert f"red_buoy_{direction}" not in toggler.running and buoy.returncode == 0, buoy.returncode
+        found = re.findall(r"kernel launches: (\{.*\})", module_log("red_buoy"))
+        assert found, "red_buoy logged no kernel launch counts"
+        out["red_buoy_launches"] = json.loads(found[-1])
+        for name in ("label_cuda", "fused_morph"):
+            assert out["red_buoy_launches"][name] > 0, out["red_buoy_launches"]
+        traces = sorted(profile_dir.glob("torch-profile-*.json"))
+        assert len(traces) == 1, traces  # red_buoy's; poster ends by SIGTERM and writes none
+        out["red_buoy_trace"] = trace_kernels(traces[0])
+        if not out["red_buoy_trace"]["kernels"]:
+            out["red_buoy_trace"]["note"] = "CUPTI gave no kernel record (PERF.md §7)"
+
+        # poster: the toggle-off, the toggler's SIGTERM to its group
+        post = toggler.running[f"poster_{direction}"].process
+        t_off = time.monotonic()
+        for module in ("red_buoy", "poster"):
+            assert json.loads(request("POST", f"/toggle/{module}/{direction}?on=false"))["on"] is False
+        toggler.sync()
+        out["toggle_off_to_exit_ms"] = (time.monotonic() - t_off) * 1e3
+        assert not toggler.running and post.returncode == -signal.SIGTERM, post.returncode
+        assert out["toggle_off_to_exit_ms"] < ModuleToggler.STOP_GRACE_S * 1e3, out
+        for p in (buoy, post):
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, 0)
+                raise AssertionError(f"process group {p.pid} still alive")
+        out["left_behind"] = {
+            module: sorted(p.name for p in Path(BLOCK_STUB).parent.glob(
+                Path(BLOCK_STUB).name + f"module_{module}-on-{direction}*"))
+            for module in ("BuoyLAB", "Poster")}
+        assert not out["left_behind"]["BuoyLAB"], out["left_behind"]
+    finally:
+        if toggler is not None:
+            for entry in list(toggler.running.values()):
+                toggler._stop(entry.name, entry.source)
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        for reader in list(web_viewer._readers.values()):
+            reader.unblock()
+        web_viewer._readers.clear()
+        web_viewer._latest.clear()
+        if source.poll() is None:
+            source.send_signal(signal.SIGINT)
+            try:
+                source.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                source.kill()
+                source.wait()
+        source_log.close()
+        vehicle.vision_modules, vehicle.module_devices = saved_vehicle
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        for path in Path(BLOCK_STUB).parent.glob(Path(BLOCK_STUB).name + f"*{direction}*"):
+            path.unlink(missing_ok=True)
+        for name in ("red_buoy_results", "poster_status", "zed_metrics", "vision_modules"):
+            shm.delete_group(name)
+    emit("orchestration", **out)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--morph-variant", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -3032,7 +3299,8 @@ def main() -> int:
     correction = run_path("correction", lambda: phase_correction(dev))
     run_path("train", lambda: phase_train(dev, run_id))
     module = phase_module(run_id)
-    for key, launched in module.items():
+    orchestration = phase_orchestration(run_id, smi)
+    for key, launched in (*module.items(), *orchestration.items()):
         if key.endswith("_launches"):
             for name, n in launched.items():
                 counts[name] += n

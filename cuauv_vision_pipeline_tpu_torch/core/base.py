@@ -83,7 +83,7 @@ from .bindings.frame_bus import (
 )
 from .device import resolve_device
 from .log import Logger, log as auvlog
-from .trace import tracer
+from .trace import maybe_start_device_profile, stop_device_profile, tracer
 from .tuners import BoolTuner, DoubleTuner, IntTuner, TunerBase
 
 VALID_COLOR_SPACES = ("BGR", "RGB", "HSV", "LAB", "HLS", "YCRCB", "LUV", "GRAY")
@@ -1007,6 +1007,7 @@ class ModuleBase(ABC):
         else:
             name = "host CPU"
         logger(f"Device: {self.device} ({name})", True)
+        maybe_start_device_profile(self.device, logger)
 
         while self._retry:
             self._retry = False
@@ -1039,8 +1040,9 @@ class ModuleBase(ABC):
             # are blocked inside calls that will not return; interpreter/
             # C++ teardown may then abort the process. All shm state
             # is already cleaned above — exit without running destructors.
-            # os._exit skips atexit, so dump the incident's trace (the one
-            # you most want) and flush streams explicitly first.
+            # os._exit skips atexit, so dump the incident's traces (the
+            # ones you most want: host spans and the device profile) and
+            # flush streams explicitly first.
             import sys
 
             trace_dir = os.environ.get("CUAUV_TRACE_DIR")
@@ -1051,6 +1053,7 @@ class ModuleBase(ABC):
                         f"trace-{os.getpid()}-{int(time.time())}.json",
                     )
                 )
+            stop_device_profile()
             sys.stdout.flush()
             sys.stderr.flush()
             os._exit(0)

@@ -589,6 +589,24 @@ def delete_group(name: str) -> None:
         pass
 
 
+def list_groups() -> List[str]:
+    """Names of the live groups in the current namespace: with
+    ``CUAUV_SHM_NAMESPACE=<ns>`` the groups ``auv_shm_<name>@<ns>``, without
+    it every ``auv_shm_*`` file (as the JAX package lists them)."""
+    stub = os.path.basename(SHM_STUB)
+    suffix = f"@{os.environ.get(NAMESPACE_ENV, '')}"
+    names = []
+    for entry in sorted(os.listdir(os.path.dirname(SHM_STUB))):
+        if not entry.startswith(stub):
+            continue
+        name = entry[len(stub):]
+        if suffix == "@":
+            names.append(name)
+        elif name.endswith(suffix):
+            names.append(name[: -len(suffix)])
+    return names
+
+
 def __getattr__(name: str) -> Group:
     """Module-level attribute access: ``shm.red_buoy_results``."""
     if name.startswith("_"):

@@ -130,3 +130,55 @@ class Tracer:
 
 
 tracer = Tracer()
+
+
+PROFILE_DIR_ENV = "CUAUV_TORCH_PROFILE_DIR"
+_profile = None  # (torch.profiler.profile, output dir) while a trace runs
+
+
+def maybe_start_device_profile(device, logger=None) -> bool:
+    """Start a torch.profiler trace when $CUAUV_TORCH_PROFILE_DIR is set:
+    CPU activity of every thread, plus CUDA kernels and copies when
+    ``device`` is a CUDA device (the level below the host spans above).
+    :func:`stop_device_profile` ends it and writes one Chrome trace into
+    that directory; it also runs at process exit. Returns whether a trace
+    started. The port's twin of the JAX package's jax.profiler hook
+    ($CUAUV_JAX_PROFILE_DIR)."""
+    global _profile
+    profile_dir = os.environ.get(PROFILE_DIR_ENV)
+    if not profile_dir or _profile is not None:
+        return False
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    # a module's loop runs on its own thread: record CPU ops of all threads
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = profile(activities=activities, experimental_config=config)
+    prof.start()
+    _profile = (prof, profile_dir)
+    atexit.register(stop_device_profile)
+    if logger is not None:
+        names = "+".join(a.name for a in activities)
+        logger(f"torch.profiler trace ({names}) -> {profile_dir}", True)
+    return True
+
+
+def stop_device_profile() -> Optional[str]:
+    """End the trace :func:`maybe_start_device_profile` started and write
+    it as ``torch-profile-<pid>-<time>.json``; returns the path (None when
+    no trace runs)."""
+    global _profile
+    if _profile is None:
+        return None
+    prof, profile_dir = _profile
+    _profile = None
+    prof.stop()
+    path = os.path.join(
+        profile_dir, f"torch-profile-{os.getpid()}-{int(time.time())}.json"
+    )
+    prof.export_chrome_trace(path)
+    return path

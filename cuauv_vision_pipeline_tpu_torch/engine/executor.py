@@ -345,3 +345,29 @@ class StreamExecutor:
     def close(self) -> None:
         if self.async_fetch:
             self._inflight.put(None)
+
+
+class EmaTimer:
+    """EMA stage timing (the reference's StageBenchmark pattern,
+    reference capture_sources/zed.py:53-80)."""
+
+    def __init__(self, alpha: float = 0.1, report_every_s: float = 3.0):
+        self.alpha = alpha
+        self.report_every_s = report_every_s
+        self.stages: dict = {}
+        self._last_report = time.monotonic()
+
+    def record(self, stage: str, seconds: float) -> None:
+        prev = self.stages.get(stage)
+        self.stages[stage] = (
+            seconds if prev is None else prev * (1 - self.alpha) + seconds * self.alpha
+        )
+
+    def maybe_report(self, log_fn: Callable[[str], None]) -> None:
+        now = time.monotonic()
+        if now - self._last_report >= self.report_every_s:
+            self._last_report = now
+            parts = ", ".join(
+                f"{name}={sec * 1000:.2f}ms" for name, sec in self.stages.items()
+            )
+            log_fn(f"stage timings (EMA a={self.alpha}): {parts}")

@@ -203,14 +203,43 @@ no result):
              ``latency_ms`` and the source's postprocess EMA per frame with
              its bytes each way.
 
+17. mesh  — the (data, model) mesh (``parallel/mesh.py``) on
+             ``torch.distributed``: ``entry.dryrun_multichip(1)`` on NCCL
+             (rank 0 on cuda:0), ``dryrun_multichip(2)`` with both ranks
+             on cuda:0 over gloo (dp 1 x tp 2) and ``dryrun_multichip(4)``
+             with all four there (dp 2 x tp 2), each rank passing the JAX
+             dry run's assertions; the two- and four-rank train steps
+             against the one-process card step on the global batch (TF32
+             off) within TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL; every rank's camera
+             (``chain_one``) and merged list (``all_gather`` +
+             ``cross_camera_nms``) exactly as the one-card forms give them;
+             ``fused_morph``, ``label_cuda``, ``spacing_select`` and
+             ``nms_fixed`` launched in every rank; ``examples.multichip_fanout``
+             with two ranks at 1080p (ms per round); the dp 1 x tp 2 step at
+             bench.py's train cell (YOLOv8n detect, b16@320), ms per step
+             beside the one-process step's. Ranks sharing one card over
+             gloo: a rehearsal that says nothing of four cards.
+18. native — the port's C++ capture binaries built with g++ alone
+             (``stubcheck``, ``flir_capture_stub``, ``framebus_test``);
+             ``framebus_test`` passes, ``--parse-only`` reads the port's
+             ``flir.conf``; the zed stub's capture loop for about a second,
+             its 4-plane frame read through the port's ``BlockAccessor``
+             (plane names, dtypes, view markers, scrubbed NaNs). The loop
+             writes the fixed direction ``zed`` and the group
+             ``zed_calibration`` and ``framebus_test`` its ``nativetest_*``
+             blocks (no namespace in the C++), so each run on the machine
+             takes its turn at both under one ``flock``, leaves a
+             ``zed`` block that another process maps alone (and fails), and
+             removes only the files it made.
+
 Launch counts are set to 0 just before each path (the chain phase, the
 YOLO phase, the yolo_tasks phase, the bins phase, the stereo phase, the multicam phase, the
 correction phase, whose path has no hand kernel, the train phase, the
 library phase) and read
 just after it; with the module processes' own logged counts (the module
-and orchestration phases) they are the
-main path's launches, and each kernel of a path must have launched in that
-path's run. Then the CCL kernels', the morphology's, the YOLO path's
+and orchestration phases) and the mesh's rank processes' counts they are
+the main path's launches, and each kernel of a path must have launched in
+that path's run. Then the CCL kernels', the morphology's, the YOLO path's
 (preamble, conv stack, decode, NMS), the bins path's (per stage), the
 stereo chain's, the two-camera dispatch's and the correction chain's (per
 stage, and the preprocessor's stack) device time (torch.profiler)
@@ -229,6 +258,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import fcntl
 import json
 import os
 import re
@@ -242,6 +272,7 @@ import threading
 import time
 import uuid
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -316,9 +347,15 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# device_ms's split when CUPTI gave it no kernel record (see profile_fn)
+NO_KERNEL_RECORD = "cuda_events: torch.profiler recorded no kernel event in three traces"
+
+
 def device_ms(fn, n: int = 20):
     """The CUDA kernels' own device time per call of ``fn`` (torch.profiler,
-    kernel events summed), and its split by kernel name."""
+    kernel events summed), and its split by kernel name. After three traces
+    with no kernel record, as ``profile_fn``: the CUDA-event span of one
+    call (an upper bound), split as ``{NO_KERNEL_RECORD: ms}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -333,7 +370,8 @@ def device_ms(fn, n: int = 20):
                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
         if sum(by_name.values()) > 0:
             return sum(by_name.values()), by_name
-    raise RuntimeError("torch.profiler recorded no kernel time in three traces")
+    ms = cuda_ms(fn, n, warmup=0)
+    return ms, {NO_KERNEL_RECORD: ms}
 
 
 def seam_lines(shape, axis: int, dev):
@@ -1251,7 +1289,7 @@ def profile_fn(fn, n: int = 20) -> dict:
             break
     else:
         return {"device_ms": cuda_ms(fn, n, warmup=0), "kernels": None, "top_device_ms": [],
-                "timed_by": "cuda_events: torch.profiler recorded no kernel event in three traces"}
+                "timed_by": NO_KERNEL_RECORD}
     by_name: dict = {}
     for e in events:
         by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + e.self_device_time_total / 1e3 / n
@@ -3219,6 +3257,307 @@ def phase_orchestration(run_id: str, smi: str) -> dict:
     return out
 
 
+MESH_KERNELS = ("fused_morph", "label_cuda", "spacing_select", "nms_fixed")
+MESH_FANOUT_ROUNDS = 50
+MESH_TIMED_STEPS = 5
+
+
+def mesh_train_diff(ranks, grid, want_loss, want_grads) -> dict:
+    """The ranks' step (loss, gradients joined from the slices of the data
+    row ``grid[0]``) against the one-process card step's."""
+    from cuauv_vision_pipeline_tpu_torch.parallel.mesh import gather_params
+
+    grads = gather_params([r["grads"] for r in ranks], grid, ranks[0]["shardings"])
+    err = {n: ((grads[n] - g).abs().max() / g.norm().clamp_min(1e-30)).item() for n, g in want_grads.items()}
+    worst = max(err, key=err.get)
+    return {"loss": ranks[0]["loss"], "one_process_loss": want_loss,
+            "loss_rel_err": abs(ranks[0]["loss"] - want_loss) / abs(want_loss),
+            "grad_err_of_norm": err[worst], "grad_worst": worst,
+            "split_params": sum("model" in s for s in ranks[0]["shardings"].values())}
+
+
+def mesh_cameras_and_merge(result, dev) -> list:
+    """Each rank's camera against the one-card ``chain_one`` on its frame,
+    and each rank's merged list against ``cross_camera_nms`` on the stacked
+    lists, in this process on ``dev``: the failures (exact equality)."""
+    from cuauv_vision_pipeline_tpu_torch.entry import DRYRUN_MAX_DET
+    from cuauv_vision_pipeline_tpu_torch.parallel.crosscam import cross_camera_nms
+    from cuauv_vision_pipeline_tpu_torch.parallel.fanout import chain_one
+
+    data, failures = result["data"], []
+    for cam, r in enumerate(result["ranks"]):
+        want = chain_one(torch.from_numpy(data["frames"][cam]).to(dev), 140, 255)
+        for key, value in want.items():
+            if not np.array_equal(r["fan"][key], value.cpu().numpy()):
+                failures.append(f"rank {cam} camera {key}: {r['fan'][key]} != {value.cpu().numpy()}")
+    merged = cross_camera_nms(torch.from_numpy(data["dets"]).to(dev), max_det=DRYRUN_MAX_DET).cpu().numpy()
+    failures += [f"rank {i} merged list differs" for i, r in enumerate(result["ranks"])
+                 if not np.array_equal(r["merged"], merged)]
+    return failures
+
+
+def phase_mesh(dev, smi: str) -> dict:
+    """The (data, model) mesh on the card (``parallel/mesh.py``): (a)
+    ``dryrun_multichip(1)`` on NCCL, rank 0 on cuda:0, and beside it (b)
+    ``dryrun_multichip(2)`` with both ranks on cuda:0 over gloo (dp 1 x tp
+    2) and ``dryrun_multichip(4)`` with four (dp 2 x tp 2: the data
+    group's BatchNorm sums, normalisers and gradient sums on card
+    tensors): each train step against the one-process card step on the
+    global batch (TF32 off) at TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL; (a), (b):
+    every rank's camera and merged list exactly as the one-card forms give
+    them here, and each rank's launches of MESH_KERNELS; (c)
+    ``examples.multichip_fanout`` with 2 ranks on cuda:0 at 1080p, ms per
+    round per rank; (d) the dp 1 x tp 2 step at bench.py's train cell
+    (YOLOv8n detect, 8 classes, b16@320) on two ranks sharing cuda:0, ms
+    per step (wall, synchronized) beside the one-process step's. (b)-(d)
+    are ranks sharing one card over gloo: a rehearsal that says nothing of
+    four cards.
+    Returns the ranks' launch counts summed (``mesh_launches``)."""
+    from cuauv_vision_pipeline_tpu_torch import entry
+    from cuauv_vision_pipeline_tpu_torch.core.device import full_f32
+    from cuauv_vision_pipeline_tpu_torch.examples import multichip_fanout
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.model import create_model
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.train import create_train_state, make_train_step
+    from cuauv_vision_pipeline_tpu_torch.parallel.fanout import chain_one
+    from cuauv_vision_pipeline_tpu_torch.parallel.mesh import launch
+
+    start = time.monotonic()
+    out, failures = {"nvidia_smi": smi, "rehearsal": "ranks sharing one card over gloo; says nothing of four cards"}, []
+    launched = {}
+
+    def count(ranks, what, kernels=MESH_KERNELS):
+        for i, r in enumerate(ranks):
+            for name, n in r["launches"].items():
+                launched[name] = launched.get(name, 0) + n
+            missing = [k for k in kernels if not r["launches"][k]]
+            if missing:
+                failures.append(f"{what} rank {i} launched no {missing}")
+        return [r["launches"] for r in ranks]
+
+    def dryrun(n, backend, device):
+        t0 = time.monotonic()
+        return entry.dryrun_multichip(n, backend=backend, device=device), time.monotonic() - t0
+
+    # the three dry runs side by side (their numbers do not depend on it)
+    with ThreadPoolExecutor(3) as pool:
+        runs = {key: pool.submit(dryrun, *args) for key, args in
+                (("nccl_1", (1, "nccl", None)), ("gloo_2", (2, "gloo", "cuda:0")),
+                 ("gloo_4", (4, "gloo", "cuda:0")))}
+    for key, run in runs.items():
+        result, seconds = run.result()
+        n = len(result["ranks"])
+        row = out[key] = {"seconds": seconds, "dp": result["dp"], "tp": result["tp"],
+                          "loss": result["loss"], "launches": count(result["ranks"], key)}
+        failures += [f"{key}: {f}" for f in mesh_cameras_and_merge(result, dev)]
+        if n > 1:
+            data = result["data"]
+            model = create_model(entry.DRYRUN_CLASSES, "n", "detect").to(dev)
+            step = make_train_step(create_train_state(model))
+            with full_f32():
+                loss = float(step(*(torch.from_numpy(data[k]).to(dev) for k in ("images", "t_xyxy", "t_cls"))))
+            grid = np.arange(n).reshape(result["dp"], result["tp"])
+            row.update(mesh_train_diff(result["ranks"], grid, loss,
+                                       {name: p.grad.cpu() for name, p in model.named_parameters()}))
+            if not (row["loss_rel_err"] <= TRAIN_LOSS_RTOL and row["grad_err_of_norm"] <= TRAIN_GRAD_TOL):
+                failures.append(f"{key} step against the one-process step: {row}")
+
+    t0 = time.monotonic()
+    fan = multichip_fanout.run(["--cameras", "2", "--backend", "gloo", "--rounds", str(MESH_FANOUT_ROUNDS)])
+    frames = multichip_fanout.camera_frames(2, 1080)
+    for cam, r in enumerate(fan["ranks"]):
+        want = chain_one(torch.from_numpy(frames[cam]).to(dev), 140, 255)
+        if not (r["blob"]["area"] > 0 and all(np.array_equal(r["blob"][k], v.cpu().numpy()) for k, v in want.items())):
+            failures.append(f"multichip_fanout rank {cam}: {r['blob']} != the one-card chain_one")
+    out["fanout_1080p"] = {"seconds": time.monotonic() - t0, "ms_per_round": [r["ms_per_round"] for r in fan["ranks"]],
+                           "aggregate_fps": fan["aggregate_fps"],
+                           "launches": count(fan["ranks"], "fanout", ("fused_morph", "label_cuda"))}
+
+    t0 = time.monotonic()
+    inputs = train_inputs("detect")
+    ranks = launch(entry.mesh_train_rank, 2, "gloo", "cuda:0",
+                   args=(1, 2, inputs, None, None, MESH_TIMED_STEPS + 1, TRAIN_MODELS["detect"]))
+    model = create_model(TRAIN_MODELS["detect"], "n", "detect").to(dev)
+    step = make_train_step(create_train_state(model))
+    batch = [torch.from_numpy(a).to(dev) for a in inputs]
+    one = []
+    with full_f32():
+        for _ in range(MESH_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            float(step(*batch))
+            torch.cuda.synchronize()
+            one.append((time.perf_counter() - t1) * 1e3)
+    out["dp1_tp2_b16_320"] = {
+        "seconds": time.monotonic() - t0, "steps": MESH_TIMED_STEPS, "first_step_ms": ranks[0]["ms_per_step"][0],
+        "ms_per_step": statistics.median(ranks[0]["ms_per_step"][1:]), "rank_ms": [r["ms_per_step"] for r in ranks],
+        "one_process_ms_per_step": statistics.median(one[1:]), "loss": ranks[0]["loss"],
+        "split_params": sum("model" in s for s in ranks[0]["shardings"].values())}
+    if not np.isfinite(ranks[0]["loss"]):
+        failures.append(f"dp1 x tp2 b16@320: loss {ranks[0]['loss']}")
+    out["seconds"] = time.monotonic() - start
+    out["mesh_launches"] = launched
+    emit("mesh", **out)
+    if failures:
+        raise AssertionError("mesh: " + "; ".join(failures))
+    return out
+
+
+NATIVE_ZED_S = 1.0  # the zed stub's capture loop runs about this long
+# every run on the machine takes its turn at framebus_test and the zed stub
+# loop through this lock (its name matches no bus or group prefix, so no
+# clean-up removes it)
+NATIVE_LOCK = "/dev/shm/cuauv_native_binaries.lock"
+NATIVE_TURN_WAIT_S = 120.0  # another run's turn lasts a few seconds
+
+
+@contextlib.contextmanager
+def machine_turn(path: str, wait_s: float):
+    """Hold an exclusive ``flock`` on ``path`` (created if absent, never
+    removed: removing a lock file lets two holders lock two files) for the
+    ``with`` block; wait up to ``wait_s`` for another holder to let go."""
+    fd = os.open(path, os.O_CREAT | os.O_RDWR, 0o666)
+    try:
+        deadline = time.monotonic() + wait_s
+        while True:
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except BlockingIOError:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"another process held {path} for {wait_s} s") from None
+                time.sleep(0.1)
+        yield
+    finally:
+        os.close(fd)
+
+
+def mapped_by(path: str) -> list:
+    """The pids, other than this one, that map ``path`` (``/proc/*/maps``;
+    a mapping of an unlinked file of that name ends in " (deleted)" and does
+    not count)."""
+    pids = []
+    for entry in os.scandir("/proc"):
+        if not entry.name.isdigit() or int(entry.name) == os.getpid():
+            continue
+        try:
+            with open(os.path.join(entry.path, "maps")) as maps:
+                if any(line.rstrip("\n").endswith(" " + path) for line in maps):
+                    pids.append(int(entry.name))
+        except OSError:
+            continue
+    return pids
+
+
+def zed_stub_frame(block: str, t0: float, failures: list) -> dict:
+    """Read the zed stub's frames on ``block`` through the port's
+    ``BlockAccessor`` for about NATIVE_ZED_S after ``t0`` and check the last
+    one as the JAX package's stub test does; the checks by name."""
+    from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BlockAccessor, ReadStatus
+
+    deadline = time.monotonic() + 20
+    while not os.path.exists(block) and time.monotonic() < deadline:
+        time.sleep(0.02)
+    frames = 0
+    with BlockAccessor("zed") as acc:
+        while time.monotonic() - t0 < NATIVE_ZED_S or not frames:
+            status, data, _ = acc.read_frame()
+            if status == ReadStatus.SUCCESS:
+                frames += 1
+                planes, last = acc.last_plane_names(), data
+            elif time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    if not frames:
+        failures.append("no frame from the zed stub's capture loop")
+        return {}
+    fwd, fwd2, depth, normal = last
+    checks = {
+        "frames_read": frames,
+        "planes": planes == ("forward", "forward2", "depth", "normal"),
+        "forward": fwd.shape == (180, 320, 3) and fwd.dtype == np.uint8 and fwd[0, 5, 2] == 200,
+        "forward2": fwd2[0, 5, 2] == 100,
+        "depth": depth.dtype == np.float32 and depth[0, 0, 0] == 0.0 and depth[10, 10, 0] == 2.5,
+        "normal": (normal.dtype == np.float32 and abs(normal[10, 10, 0] - 1.0) < 1e-6
+                   and abs(normal[10, 10, 1]) < 1e-6 and abs(normal[10, 10, 2] - 0.5) < 1e-6
+                   and abs(normal[0, 0, 0] - 0.5) < 1e-6),
+    }
+    checks = {k: v if k == "frames_read" else bool(v) for k, v in checks.items()}
+    failures += [f"zed stub frame: {k}" for k, ok in checks.items() if ok is False]
+    return checks
+
+
+def phase_native() -> dict:
+    """The port's C++ capture binaries, built here with g++ alone
+    (``native.build_binary``): ``stubcheck``'s two SDK-gated sources against
+    ``test_stubs/``, ``flir_capture_stub`` (``--parse-only`` on the port's
+    ``configs/flir.conf``) and ``framebus_test``, which must pass; then the
+    zed stub's capture loop for about NATIVE_ZED_S, its aggregated 4-plane
+    frame on direction ``zed`` read through the port's ``BlockAccessor``:
+    plane names, shapes, dtypes, the view markers and the scrubbed NaNs the
+    JAX package's stub test checks. ``framebus_test`` and the loop run in
+    this run's turn on the machine (NATIVE_LOCK); the loop does not run
+    while another process maps the ``zed`` block."""
+    from cuauv_vision_pipeline_tpu_torch import native
+    from cuauv_vision_pipeline_tpu_torch.core import shm
+    from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BLOCK_STUB
+
+    out, failures = {}, []
+    start = t0 = time.monotonic()
+    names = (*native.STUBCHECK, "flir_capture_stub", "framebus_test")
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(native.build_binary, names)))
+    out["build_seconds"] = time.monotonic() - t0
+    parse = subprocess.run([str(paths["flir_capture_stub"]), "--parse-only",
+                            str(REPO / "cuauv_vision_pipeline_tpu_torch" / "configs" / "flir.conf")],
+                           capture_output=True, text=True, timeout=30)
+    out["flir_parse_only"] = parse.stdout.strip()
+    if parse.returncode or "serial=" not in parse.stdout:
+        failures.append(f"flir_capture_stub --parse-only: {parse.stdout} {parse.stderr}")
+
+    # framebus_test's blocks (nativetest_*) and the stub's direction ``zed``
+    # and group zed_calibration are named by the C++ without this run's
+    # namespace: every run on the machine takes its turn at them
+    # (NATIVE_LOCK), a block that another process maps is left alone (the
+    # phase fails), and this run removes only the files it made, before its
+    # turn ends
+    block, calib = BLOCK_STUB + "zed", shm.SHM_STUB + "zed_calibration"
+    t0 = time.monotonic()
+    with machine_turn(NATIVE_LOCK, NATIVE_TURN_WAIT_S):
+        out["turn_wait_s"] = time.monotonic() - t0
+        test = native.run_test()
+        out["framebus_test"] = test.stdout.strip().splitlines()[-1:]
+        if test.returncode or "all native tests passed" not in test.stdout:
+            failures.append(f"framebus_test: {test.stdout[-800:]} {test.stderr[-800:]}")
+        users = mapped_by(block)
+        if users:
+            raise AssertionError(f"native: {block} is mapped by pids {users} (a zed source on this "
+                                 f"machine); the zed stub loop writes that direction, so it did not run")
+        made_block, made_calib = not os.path.exists(block), not os.path.exists(calib)
+        namespace = os.environ.pop("CUAUV_SHM_NAMESPACE", None)
+        try:
+            shm.group("zed_calibration").get()
+        finally:
+            if namespace is not None:
+                os.environ["CUAUV_SHM_NAMESPACE"] = namespace
+        t0 = time.monotonic()
+        proc = subprocess.Popen([str(paths["zed_capture_stubcheck"])], cwd=REPO,
+                                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        try:
+            out["zed_checks"] = zed_stub_frame(block, t0, failures)
+        finally:
+            proc.kill()
+            proc.wait()
+            if made_block and os.path.exists(block):
+                os.unlink(block)
+            if made_calib and os.path.exists(calib):
+                os.unlink(calib)
+    out["seconds"] = time.monotonic() - start
+    emit("native", **out)
+    if failures:
+        raise AssertionError("native: " + "; ".join(failures))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--morph-variant", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -3305,6 +3644,10 @@ def main() -> int:
             for name, n in launched.items():
                 counts[name] += n
     run_path("library", lambda: phase_library(dev, smi))
+    # the mesh's rank processes count their own launches
+    for name, n in phase_mesh(dev, smi)["mesh_launches"].items():
+        counts[name] += n
+    phase_native()
     for name, n in counts.items():
         assert n > 0, f"{name} was not launched on the main path"
     phase_ccl_device(ccl_inputs)

@@ -13,7 +13,16 @@ python -m cuauv_vision_pipeline_tpu_torch.modules.yolo zed``), and so does
 the JAX package. The host renders fresh scenes every step (no epochs); a
 held-out evaluation reports recall and precision at IoU >= 0.5 through the
 port's ``decode`` (greedy NMS by the ``nms_fixed`` kernel on the card).
-The port runs on one card: there is no ``--dp``/``--tp``.
+
+``--dp``/``--tp`` train on a (data, model) mesh of ``dp * tp`` ranks
+(``parallel/mesh.py``; the same layout ``entry.dryrun_multichip`` runs): dp
+splits each step's batch (``--batch`` must divide by it), tp the wide conv
+output channels, and the ranks together take the one-process step on the
+global batch. ``--backend nccl`` puts rank r on ``cuda:r``; ``--backend
+gloo`` puts every rank on ``--device`` (the CPU with ``--device cpu``).
+Rank 0 evaluates and saves the whole model:
+
+    python -m cuauv_vision_pipeline_tpu_torch.examples.train_synthetic --dp 2 --tp 2 --backend gloo --device cpu --steps 50
 """
 
 from __future__ import annotations
@@ -69,24 +78,7 @@ def evaluate(model, args, seed: int = 10_000):
     return recall, precision, n_gt, q
 
 
-def run(argv: Optional[List[str]] = None) -> Dict:
-    """Train, evaluate and save as the command line asks; returns the run's
-    summary (steps, seconds, steps/s, last loss, recall, precision, the
-    task's quality term, the checkpoint's path)."""
-    from ..core.device import resolve_device
-    from ..models.yolo.model import create_model
-    from ..models.yolo.synth import (
-        CLASS_NAMES,
-        GATE_CLASS_NAMES,
-        OBB_CLASS_NAMES,
-        POSE_CLASS_NAMES,
-        POSE_NUM_KEYPOINTS,
-        make_task_batch,
-        to_model_input,
-    )
-    from ..models.yolo.train import create_train_state, make_train_step
-    from ..models.yolo.weights import save_checkpoint
-
+def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=700)
     ap.add_argument("--batch", type=int, default=8)
@@ -103,28 +95,92 @@ def run(argv: Optional[List[str]] = None) -> Dict:
         "masks), obb the angle L1 (rotated slabs), pose the keypoint L1+visibility BCE (disc "
         "rim points); gate trains the detect head on shark/saw scenes",
     )
-    ap.add_argument("--device", default=None, help="cuda:N or N (default cuda:0), or cpu")
+    ap.add_argument("--device", default=None,
+                    help="cuda:N or N (default cuda:0), or cpu; with --dp/--tp, gloo's device")
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks (--batch must divide by it)")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (split the wide conv channels)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
+                    help="with --dp/--tp: nccl puts rank r on cuda:r, gloo every rank on --device")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    assert args.batch % args.dp == 0, "--batch must divide by --dp"
+    return args
+
+
+def run(argv: Optional[List[str]] = None) -> Dict:
+    """Train, evaluate and save as the command line asks; returns the run's
+    summary (steps, seconds, steps/s, last loss, recall, precision, the
+    task's quality term, the checkpoint's path). With ``--dp``/``--tp`` the
+    ranks train together and rank 0's summary is returned."""
+    from ..core.device import resolve_device
+    from ..parallel.mesh import launch
+
+    args = _parse(argv)
+    if args.dp * args.tp == 1:
+        return _train(args, resolve_device(args.device))
+    print(f"[train] mesh: dp={args.dp} tp={args.tp} ({args.dp * args.tp} ranks, {args.backend})", flush=True)
+    return launch(_train_rank, args.dp * args.tp, args.backend, args.device, args=(args,))[0]
+
+
+def _train_rank(device, args: argparse.Namespace) -> Dict:
+    from ..parallel.mesh import make_mesh
+
+    return _train(args, device, make_mesh(args.dp * args.tp, dp=args.dp, tp=args.tp))
+
+
+def _train(args: argparse.Namespace, device, mesh=None) -> Dict:
+    """The run on ``device``; on a mesh every rank draws the same global
+    batches (one seed) and steps on its share, and rank 0 (the whole model
+    gathered) evaluates and saves."""
+    from ..models.yolo.model import create_model
+    from ..models.yolo.synth import (
+        CLASS_NAMES,
+        GATE_CLASS_NAMES,
+        OBB_CLASS_NAMES,
+        POSE_CLASS_NAMES,
+        POSE_NUM_KEYPOINTS,
+        make_task_batch,
+        to_model_input,
+    )
+    from ..models.yolo.train import create_train_state, make_train_step
+    from ..models.yolo.weights import save_checkpoint
+    from ..parallel.mesh import full_state_dict, param_shardings, place, shard_batch
+
     names = {"obb": OBB_CLASS_NAMES, "pose": POSE_CLASS_NAMES, "gate": GATE_CLASS_NAMES}.get(args.task, CLASS_NAMES)
     # "gate" is a dataset: shark/saw scenes train the plain detect head
     model_task = "detect" if args.task == "gate" else args.task
-    model = create_model(len(names), size=args.model_size, task=model_task, seed=args.seed,
-                         num_keypoints=POSE_NUM_KEYPOINTS).to(device)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"[train] {args.model_size}-size {args.task} model: {n_params:,} params on {device}")
 
-    step = make_train_step(create_train_state(model, learning_rate=args.lr))
+    def build():
+        return create_model(len(names), size=args.model_size, task=model_task, seed=args.seed,
+                            num_keypoints=POSE_NUM_KEYPOINTS).to(device)
+
+    model = build()
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"[train] {args.model_size}-size {args.task} model: {n_params:,} params on {device}")
+    if mesh is not None:
+        # the same wide-channel rule as the JAX example's
+        shardings = param_shardings(mesh, model, min_channels=32)
+        place(model, mesh, shardings)
+    step = make_train_step(create_train_state(model, learning_rate=args.lr), mesh)
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
     loss = None
     for i in range(args.steps):
         batch = make_task_batch(rng, args.batch, args.image_size, task=args.task)
         parts = (to_model_input(batch[0]),) + tuple(batch[1:])
+        if mesh is not None:
+            parts = shard_batch(mesh, parts)
         loss = step(*(torch.from_numpy(np.ascontiguousarray(p)).to(device, non_blocking=True) for p in parts))
-        if i % 50 == 0 or i == args.steps - 1:
+        if lead and (i % 50 == 0 or i == args.steps - 1):
             print(f"[train] step {i:5d}  loss {float(loss):8.4f}  ({(time.time() - t0):6.1f}s)", flush=True)
     seconds = time.time() - t0
+    if mesh is not None:
+        state = full_state_dict(model, mesh, shardings)
+        if not lead:
+            return {}
+        model = build()
+        model.load_state_dict(state)
 
     recall, precision, n_gt, quality = evaluate(model, args)
     q_note = {"segment": f"  mask-IoU {quality:.3f}", "obb": f"  angle-err {quality:.2f} deg",

@@ -68,7 +68,13 @@ class BatchNorm(nn.Module):
     the running statistics by ``running = 0.97 * running + 0.03 * batch``
     with that biased variance, flax's fast form ``E[x^2] - E[x]^2`` clamped
     at 0. torch's own running update (unbiased variance, momentum the new
-    value's weight) is not used."""
+    value's weight) is not used.
+
+    With ``group`` set (``train.make_train_step`` on a mesh: the data group)
+    the batch is the union of the group's equal shares: the sums behind the
+    mean and the variance are all-reduced over the group (with their
+    gradients) before normalising, the variance still the two-pass biased
+    one ``F.batch_norm`` takes."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -76,16 +82,37 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.group = None
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+
+    def _group_forward(self, x: torch.Tensor) -> torch.Tensor:
+        from torch.distributed import get_world_size
+
+        from ...parallel.mesh import sum_over
+
+        count = x.numel() // x.shape[1] * get_world_size(self.group)
+        sums = sum_over(torch.stack([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)).detach()]), self.group)
+        mean = sums[0] / count
+        centred = x - mean[:, None, None]
+        var = sum_over((centred * centred).sum((0, 2, 3)), self.group) / count
+        with torch.no_grad():
+            self._move_running(mean, torch.clamp_min(sums[1] / count - mean * mean, 0.0))
+        scale = self.weight * torch.rsqrt(var + BN_EPS)
+        return centred * scale[:, None, None] + self.bias[:, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, BN_EPS)
+        if self.group is not None:
+            return self._group_forward(x)
         with torch.no_grad():
             mean = x.mean((0, 2, 3))
             var = torch.clamp_min((x * x).mean((0, 2, 3)) - mean * mean, 0.0)
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+            self._move_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, BN_EPS)
 
 

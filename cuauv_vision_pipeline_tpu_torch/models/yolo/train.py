@@ -19,6 +19,16 @@ Padding gts (``t_cls == -1``) contribute nothing to any term: their class
 row is all zero (as ``jax.nn.one_hot(-1, C)``), and their box, DFL and
 task terms are masked out. Assigned cells truncate toward zero
 (``.to(torch.int32)``, as JAX's ``astype(int32)``), then clip to the grid.
+
+On a mesh (``make_train_step(state, mesh)``, ``parallel/mesh.py``) the ranks
+together take the one-process step on the global batch, as GSPMD makes the
+JAX step do: each rank holds its data index's equal share of the batch
+(``mesh.shard_batch``), the loss normalisers (the gt count of ``_denom``,
+the element count of each mean) are global (``group``: the data group),
+the train-mode BatchNorms take their statistics over the data group, each
+rank's loss is the global loss's share of its data index, and the gradients
+are summed (not averaged): replicated parameters over every rank, split
+ones over the data group.
 """
 
 from __future__ import annotations
@@ -28,10 +38,12 @@ from dataclasses import dataclass
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ...parallel.mesh import sum_gradients
 from .decode import STRIDES
-from .model import YOLO
+from .model import YOLO, BatchNorm
 
 # optax.adamw's defaults (b1, b2, eps, weight_decay)
 ADAMW_BETAS = (0.9, 0.999)
@@ -78,12 +90,26 @@ def _gather_assigned(feature_map: torch.Tensor, targets_xyxy: torch.Tensor, stri
     return flat.gather(1, (gy * W + gx)[..., None].expand(-1, -1, C))
 
 
-def _denom(valid_t: torch.Tensor) -> torch.Tensor:
-    return torch.clamp_min(valid_t.sum(), 1)
+def _denom(valid_t: torch.Tensor, group=None) -> torch.Tensor:
+    """The number of real gts (at least 1); with ``group``, in the whole
+    batch of the data group."""
+    count = valid_t.sum()
+    if group is not None:
+        count = count.detach().clone()
+        dist.all_reduce(count, group=group)
+    return torch.clamp_min(count, 1)
+
+
+def _mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x.mean()``; with ``group``, this rank's share of the mean over the
+    group's equal shares."""
+    if group is None:
+        return x.mean()
+    return x.sum() / (x.numel() * dist.get_world_size(group))
 
 
 def segment_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_masks: torch.Tensor,
-                 valid_t: torch.Tensor, image_size: int) -> torch.Tensor:
+                 valid_t: torch.Tensor, image_size: int, group=None) -> torch.Tensor:
     """Mask loss of the segment task: per gt, the mask its assigned anchor's
     coefficients make from the prototypes, BCE over the prototype grid
     cropped to the gt box (left/top inclusive, right/bottom exclusive) and
@@ -100,7 +126,7 @@ def segment_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_masks: torch
     crop = ((cols >= x1[..., None, None]) & (cols < x2[..., None, None])
             & (rows >= y1[..., None, None]) & (rows < y2[..., None, None]))  # [B, T, hp, wp]
     area = torch.clamp_min((x2 - x1) * (y2 - y1), 1.0)
-    denom = _denom(valid_t)
+    denom = _denom(valid_t, group)
     total = 0.0
     for i, stride in enumerate(STRIDES):
         coefs = _gather_assigned(outputs["mcoef"][i], targets_xyxy, stride)  # [B, T, nm]
@@ -111,10 +137,10 @@ def segment_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_masks: torch
 
 
 def obb_angle_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_angle: torch.Tensor,
-                   valid_t: torch.Tensor) -> torch.Tensor:
+                   valid_t: torch.Tensor, group=None) -> torch.Tensor:
     """L1 on the decoded angle ``(sigmoid - 0.25) * pi`` (decode's
     dist2rbox) at each gt's assigned anchor, averaged over the scales."""
-    denom = _denom(valid_t)
+    denom = _denom(valid_t, group)
     total = 0.0
     for i, stride in enumerate(STRIDES):
         logits = _gather_assigned(outputs["angle"][i], targets_xyxy, stride)
@@ -124,12 +150,12 @@ def obb_angle_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_angle: tor
 
 
 def pose_kpt_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_kpts: torch.Tensor,
-                  valid_t: torch.Tensor) -> torch.Tensor:
+                  valid_t: torch.Tensor, group=None) -> torch.Tensor:
     """Per gt, the assigned anchor's keypoints decoded as decode does
     (``(k * 2) * stride + anchor - stride / 2``): an L1 on the visible
     keypoints' positions over the gt box's diagonal, averaged over the
     visible ones, plus a visibility BCE over all; averaged over scales."""
-    denom = _denom(valid_t)
+    denom = _denom(valid_t, group)
     diag = torch.sqrt(torch.clamp_min((targets_xyxy[..., 2] - targets_xyxy[..., 0]) ** 2
                                       + (targets_xyxy[..., 3] - targets_xyxy[..., 1]) ** 2, 1.0))
     gx, gy, gv = targets_kpts.unbind(-1)
@@ -153,7 +179,8 @@ def pose_kpt_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_kpts: torch
 
 
 def detection_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_cls: torch.Tensor,
-                   num_classes: int, reg_max: int = 16, targets_angle: torch.Tensor = None) -> torch.Tensor:
+                   num_classes: int, reg_max: int = 16, targets_angle: torch.Tensor = None,
+                   group=None) -> torch.Tensor:
     """Center-assignment loss: each gt claims the anchor holding its center
     at every scale; the class target is the union of the gts an anchor
     holds (clipped to 1), every other anchor learns zero objectness.
@@ -169,7 +196,7 @@ def detection_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_cls: torch
     dtype = targets_xyxy.dtype
     valid_t = targets_cls >= 0
     valid_f = valid_t.to(dtype)
-    denom = _denom(valid_t)
+    denom = _denom(valid_t, group)
     # the class rows of real gts; a padding gt's row is all zero
     onehot_t = (targets_cls[..., None] == torch.arange(num_classes, device=targets_cls.device)).to(dtype)
     if targets_angle is not None:
@@ -185,7 +212,7 @@ def detection_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_cls: torch
         cls_target = torch.zeros(B, H * W, num_classes, dtype=dtype, device=cls_map.device)
         cls_target.scatter_add_(1, flat_idx[..., None].expand(-1, -1, num_classes), onehot_t)
         cls_target.clamp_(0.0, 1.0)
-        total = total + _bce(cls_map.reshape(B, H * W, num_classes), cls_target).mean()
+        total = total + _mean(_bce(cls_map.reshape(B, H * W, num_classes), cls_target), group)
 
         # the assigned anchors' DFL logits: expected ltrb and the bin terms
         picked_logits = box_map.reshape(B, H * W, 4, reg_max).gather(
@@ -222,34 +249,38 @@ def detection_loss(outputs: Dict, targets_xyxy: torch.Tensor, targets_cls: torch
     return total
 
 
-def classify_loss(outputs: Dict, labels: torch.Tensor) -> torch.Tensor:
+def classify_loss(outputs: Dict, labels: torch.Tensor, group=None) -> torch.Tensor:
     """Softmax cross-entropy of the logits against integer labels, mean
     over the batch (optax.softmax_cross_entropy_with_integer_labels)."""
-    return F.cross_entropy(outputs["logits"], labels.long())
+    if group is None:
+        return F.cross_entropy(outputs["logits"], labels.long())
+    return _mean(F.cross_entropy(outputs["logits"], labels.long(), reduction="none"), group)
 
 
-def task_loss(model: YOLO, outputs: Dict, image_size: int, *targets: torch.Tensor) -> torch.Tensor:
+def task_loss(model: YOLO, outputs: Dict, image_size: int, *targets: torch.Tensor,
+              group=None) -> torch.Tensor:
     """The step's loss on the forward's ``outputs``: classify's CE for
     ``targets = (labels,)``, else detection_loss on ``(t_xyxy, t_cls,
-    *extra)`` plus the task's term on the trailing target."""
+    *extra)`` plus the task's term on the trailing target. With ``group``
+    (a data group), this rank's share of the loss over the group's batch."""
     if model.task == "classify":
         (labels,) = targets
-        return classify_loss(outputs, labels)
+        return classify_loss(outputs, labels, group)
     t_xyxy, t_cls, *extra = targets
     t_extra = extra[0] if extra else None
     loss = detection_loss(outputs, t_xyxy, t_cls, model.num_classes, model.reg_max,
-                          targets_angle=t_extra if model.task == "obb" else None)
+                          targets_angle=t_extra if model.task == "obb" else None, group=group)
     valid_t = (t_cls >= 0).to(t_xyxy.dtype)
     if model.task == "segment":
-        loss = loss + segment_loss(outputs, t_xyxy, t_extra, valid_t, image_size)
+        loss = loss + segment_loss(outputs, t_xyxy, t_extra, valid_t, image_size, group)
     elif model.task == "obb":
-        loss = loss + obb_angle_loss(outputs, t_xyxy, t_extra, valid_t)
+        loss = loss + obb_angle_loss(outputs, t_xyxy, t_extra, valid_t, group)
     elif model.task == "pose":
-        loss = loss + pose_kpt_loss(outputs, t_xyxy, t_extra, valid_t)
+        loss = loss + pose_kpt_loss(outputs, t_xyxy, t_extra, valid_t, group)
     return loss
 
 
-def make_train_step(state: TrainState) -> Callable[..., torch.Tensor]:
+def make_train_step(state: TrainState, mesh=None) -> Callable[..., torch.Tensor]:
     """Returns ``step(images, t_xyxy, t_cls, *extra) -> loss``: one forward
     in train mode (the BatchNorms move their running statistics), the loss,
     its gradients and one AdamW update of ``state``. ``images`` are NHWC
@@ -261,16 +292,34 @@ def make_train_step(state: TrainState) -> Callable[..., torch.Tensor]:
       unrotated extents (center +- w/2, h/2) -> obb_angle_loss;
     * pose: t_kpts ``[B, T, nk, 3]`` (x, y, visibility) -> pose_kpt_loss;
     * classify: ``step(images, labels [B])``, softmax cross-entropy.
+
+    With ``mesh`` (``parallel.mesh.make_mesh``, the model already
+    ``place``d, the optimiser built after), each rank passes its share of
+    the global batch (``shard_batch``) and gets back the global loss; the
+    BatchNorms take their statistics over the data group from here on.
     """
     model, opt = state.model, state.optimizer
+    group = tp = None
+    if mesh is not None:
+        group, tp = mesh.groups["data"], mesh.shape["model"]
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
 
     def step(images: torch.Tensor, *targets: torch.Tensor) -> torch.Tensor:
         if not model.training:
             model.train()
         outputs = model(images.permute(0, 3, 1, 2))
-        loss = task_loss(model, outputs, images.shape[1], *targets)
+        loss = task_loss(model, outputs, images.shape[1], *targets, group=group)
         opt.zero_grad(set_to_none=True)
-        loss.backward()
+        if mesh is None:
+            loss.backward()
+        else:
+            # the tp ranks of a data index each hold its whole share
+            (loss / tp).backward()
+            sum_gradients(model, mesh)
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=group)
         opt.step()
         state.step += 1
         return loss.detach()

@@ -1,9 +1,9 @@
-"""Multi-camera fan-out and cross-camera merge on one card.
+"""Multi-camera fan-out, cross-camera merge and the (data, model) mesh.
 
-Port of ``cuauv_vision_pipeline_tpu.parallel``'s ``fanout`` and ``crosscam``.
-The JAX package spreads cameras over a device mesh (``shard_map``, an
-``all_gather`` for the merge); one card has no mesh, so each counterpart
-here keeps the mesh form's contract and runs every camera as one batched
-dispatch on one device. ``parallel/mesh.py`` (dp x tp meshes for training)
-is not ported.
+Port of ``cuauv_vision_pipeline_tpu.parallel``. ``mesh.py`` lays ranks out
+as the JAX package lays out devices, on ``torch.distributed`` (one process
+per rank, explicit collectives); ``fanout`` and ``crosscam`` each keep two
+forms of the JAX mesh form's contract: on one card every camera rides one
+batched dispatch, and on a mesh each rank runs its own camera (the merge
+all-gathers the lists over the ranks).
 """

@@ -14,8 +14,9 @@ conf <= 0 and are never selected. The NMS is the hand-written CUDA kernel
 one launch per merge; CPU tensors take its plain version.
 
 The JAX package's mesh form (``make_cross_camera_merge``: an ``all_gather``
-over the camera axis, then the merge replicated per device) has no mesh to
-run on one card; :func:`make_cross_camera_merge` keeps its contract.
+over the camera axis, then the merge replicated per device) is
+:func:`make_mesh_cross_camera_merge` on a mesh of ranks (``parallel/mesh.py``);
+on one card :func:`make_cross_camera_merge` keeps its contract.
 """
 
 from __future__ import annotations
@@ -65,5 +66,19 @@ def make_cross_camera_merge(
         dets = torch.as_tensor(dets).to(dev)
         merged = cross_camera_nms(dets, iou_thresh, max_det)
         return merged[None].repeat(dets.shape[0], 1, 1)
+
+    return merge
+
+
+def make_mesh_cross_camera_merge(mesh, iou_thresh: float = 0.55, max_det: int = 32
+                                 ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The JAX mesh merge on a mesh of ranks (one camera per rank on the
+    ``data`` axis): ``merge(local [K, 6])`` on each rank all-gathers every
+    camera's list over the data group and returns the merged ``[max_det,
+    6]``, the same on every rank (one NMS launch each)."""
+    from .mesh import gather_slices
+
+    def merge(local: torch.Tensor) -> torch.Tensor:
+        return cross_camera_nms(gather_slices(local[None], mesh.groups["data"], 0), iou_thresh, max_det)
 
     return merge

@@ -7,6 +7,10 @@ callable with the same contract that runs all N frames as ONE batched chain
 on its device: one ``fused_morph`` launch and one ``label_cuda_batched``
 launch for the N cameras. (The reference scaled by pinning one module
 process per GPU; ``ModuleBase --device N`` still does that.)
+
+On a mesh of ranks (``parallel/mesh.py``) each rank runs :func:`chain_one`
+on its own camera's frame with no collective, as the JAX ``shard_map`` runs
+it on each chip.
 """
 
 from __future__ import annotations
@@ -47,3 +51,4 @@ def make_fanout(device=None) -> Callable[..., Dict[str, torch.Tensor]]:
         return chain_one(torch.as_tensor(frames).to(dev), tmin, tmax)
 
     return fan
+

@@ -37,6 +37,7 @@ from cuauv_vision_pipeline_tpu_torch.core import trace
 from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BLOCK_STUB
 from cuauv_vision_pipeline_tpu_torch.core.config import vehicle
 from cuauv_vision_pipeline_tpu_torch.core.module_toggler import ModuleToggler
+from test_torch_private_shm import run_private
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -248,23 +249,27 @@ def test_web_viewer_endpoints(monkeypatch, namespace):
         assert "red_buoy on zed" in body and "shm_red_buoy_results" in body
 
 
-def test_toggler_runs_the_real_red_buoy_on_the_cpu(tmp_path, monkeypatch, namespace):
+def test_toggler_runs_the_real_red_buoy_on_the_cpu(tmp_path):
     """The viewer's toggle starts ``modules.red_buoy`` under the toggler
     (``CUAUV_TPU_DEVICE=cpu``) on a 256x144 synthetic zed source: results
-    and the module's MJPEG post come through; the toggle-off stops it."""
-    monkeypatch.setenv("CUAUV_LOG", str(tmp_path))
-    monkeypatch.setenv("CUAUV_TPU_DEVICE", "cpu")
-    monkeypatch.setenv("PYTHONPATH", str(REPO))
+    and the module's MJPEG post come through; the toggle-off stops it. In a
+    /dev/shm of its own (``run_private``), where no other test's clean-up
+    unlinks the source's block or the results group."""
+    run_private(toggler_scenario, str(tmp_path))
+
+
+def toggler_scenario(tmp: str) -> None:
+    os.environ.update({"CUAUV_LOG": tmp, "CUAUV_TPU_DEVICE": "cpu", "PYTHONPATH": str(REPO),
+                       tshm.NAMESPACE_ENV: f"torch-orch-{uuid.uuid4().hex[:8]}"})
     direction = f"torch_orch_{uuid.uuid4().hex[:8]}"
-    monkeypatch.setattr(vehicle, "vision_modules", {"red_buoy": [direction]})
-    monkeypatch.setattr(vehicle, "module_devices", {})
+    vehicle.vision_modules, vehicle.module_devices = {"red_buoy": [direction]}, {}
     source = Synthetic(direction, width=256, height=144, fps=20, scene="zed")
     source_thread = threading.Thread(target=source.run_event_loop)
     source_thread.start()
     toggler = ModuleToggler()
     results = tshm.red_buoy_results
     results.set(visible=False, area=0.0)
-    log = tmp_path / "current" / f"red_buoy@{direction}-module.log"
+    log = Path(tmp) / "current" / f"red_buoy@{direction}-module.log"
     try:
         with _Viewer() as viewer:
             assert viewer.request("POST", f"/toggle/red_buoy/{direction}?on=true")[0] == 200
@@ -283,7 +288,7 @@ def test_toggler_runs_the_real_red_buoy_on_the_cpu(tmp_path, monkeypatch, namesp
             assert kind == "multipart/x-mixed-replace; boundary=frame" and len(jpeg) > 100
             assert viewer.request("POST", f"/toggle/red_buoy/{direction}?on=false")[0] == 200
             toggler.sync()
-        assert not toggler.running and process.returncode == -signal.SIGTERM
+        assert not toggler.running and process.returncode == -signal.SIGTERM, process.returncode
     finally:
         for entry in list(toggler.running.values()):
             toggler._stop(entry.name, entry.source)
@@ -292,6 +297,8 @@ def test_toggler_runs_the_real_red_buoy_on_the_cpu(tmp_path, monkeypatch, namesp
         # a module stopped by SIGTERM runs no cleanup: unlink its blocks
         for path in Path(BLOCK_STUB).parent.glob(Path(BLOCK_STUB).name + f"*{direction}*"):
             path.unlink(missing_ok=True)
+        for name in tshm.list_groups():
+            tshm.delete_group(name)
 
 
 # --- misc tools -------------------------------------------------------------------
@@ -483,12 +490,18 @@ def _run_module_briefly(direction):
 
 
 @pytest.mark.parametrize("enabled", [True, False])
-def test_device_profile_hook(tmp_path, monkeypatch, namespace, enabled):
-    profile_dir = tmp_path / "profile"
+def test_device_profile_hook(tmp_path, enabled):
+    """In a /dev/shm of its own (``run_private``), as the toggler test."""
+    run_private(profile_scenario, str(tmp_path), enabled)
+
+
+def profile_scenario(tmp: str, enabled: bool) -> None:
+    os.environ[tshm.NAMESPACE_ENV] = f"torch-orch-{uuid.uuid4().hex[:8]}"
+    profile_dir = Path(tmp) / "profile"
     if enabled:
-        monkeypatch.setenv(trace.PROFILE_DIR_ENV, str(profile_dir))
+        os.environ[trace.PROFILE_DIR_ENV] = str(profile_dir)
     else:
-        monkeypatch.delenv(trace.PROFILE_DIR_ENV, raising=False)
+        os.environ.pop(trace.PROFILE_DIR_ENV, None)
     direction = f"torch_prof_{uuid.uuid4().hex[:8]}"
     source = Synthetic(direction, width=128, height=96, fps=30, scene="zed")
     source_thread = threading.Thread(target=source.run_event_loop)

@@ -25,6 +25,7 @@ import cuauv_vision_pipeline_tpu_torch.handlers.torpedoes as ttorpedoes
 import cuauv_vision_pipeline_tpu_torch.models.yolo.data as tdata
 import cuauv_vision_pipeline_tpu_torch.models.yolo.tracker as ttracker
 from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BLOCK_STUB
+from test_torch_private_shm import run_private
 
 REPO = Path(__file__).resolve().parents[1]
 FIXTURE = REPO / "tests" / "fixtures" / "synth_pico_detect.msgpack"
@@ -183,9 +184,15 @@ def test_explicit_missing_weight_fails_fast(tmp_path):
                   argv=["--device", "cpu"])
 
 
-def test_yolo_module_entry_point_on_cpu(unique_direction, monkeypatch):
+def test_yolo_module_entry_point_on_cpu(unique_direction):
+    """In a /dev/shm of its own (``run_private``), where no other test's
+    clean-up unlinks the source's block or the status group."""
+    run_private(yolo_entry_scenario, unique_direction)
+
+
+def yolo_entry_scenario(unique_direction: str) -> None:
     namespace = f"test-{uuid.uuid4().hex[:10]}"
-    monkeypatch.setenv(tshm.NAMESPACE_ENV, namespace)
+    os.environ[tshm.NAMESPACE_ENV] = namespace
     env = {**os.environ, "PYTHONPATH": str(REPO), "CUAUV_YOLO_WEIGHT": str(FIXTURE)}
     status = tshm.yolo_status
     status.set(frames=0, latency_ms=0.0)

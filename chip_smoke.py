@@ -231,13 +231,39 @@ no result):
              takes its turn at both under one ``flock``, leaves a
              ``zed`` block that another process maps alone (and fails), and
              removes only the files it made.
+19. soak  — tests/test_soak.py's topology on cuda:0 (run after ``module``,
+             tests/soak_topology.py), on a direction of this run's own: the
+             synthetic ZED source at 320x180, 15 fps, four precomputed
+             frames, with ``CUAUV_BUS_FAULTS`` (drops, corrupted payloads,
+             write stalls), ``modules.red_buoy`` and ``modules.yolo`` (the
+             pico detect fixture) at 30 ticks/s with ``--device 0``; after
+             the warm-up (both result groups advance three times) 30 s of
+             soak, the source stopped by SIGINT at 40 % and restarted 3 s
+             later: both modules recover (``recovery_s``), neither goes
+             STALL_LIMIT_S without progress outside the outage, RSS stays
+             below warm x 1.5 + 200 MB, the two modules' GPU memory
+             (the card's ``nvidia-smi`` memory.used) below its reading after
+             the warm-up + 2 x SOAK_GPU_GROWTH_MIB, each module's caching
+             allocator peak logged at its exit, every process exits on
+             SIGINT (the modules with 0, logging ``label_cuda`` and
+             ``fused_morph``, and ``nms_fixed``, launches), no module block
+             is left; ``Device: cuda:0`` in both logs.
+20. report — this run's numbers as metric objects in bench.py's schema
+             (the red_buoy chain's per-frame and batched-8 fps, YOLO-OBB's
+             event-timed ms per frame, each module's ``latency_ms``, the
+             soak's counters; each with the card's name and power limit)
+             in ``smoke_logs/bench_results.json``, rendered by
+             ``python -m cuauv_vision_pipeline_tpu_torch.misc.bench_report``
+             in a fresh process into ``smoke_logs/bench_report.md``: it
+             exits 0, its "All metrics" table has a row per object, and its
+             Targets rows are printed.
 
 Launch counts are set to 0 just before each path (the chain phase, the
 YOLO phase, the yolo_tasks phase, the bins phase, the stereo phase, the multicam phase, the
 correction phase, whose path has no hand kernel, the train phase, the
 library phase) and read
-just after it; with the module processes' own logged counts (the module
-and orchestration phases) and the mesh's rank processes' counts they are
+just after it; with the module processes' own logged counts (the module,
+soak and orchestration phases) and the mesh's rank processes' counts they are
 the main path's launches, and each kernel of a path must have launched in
 that path's run. Then the CCL kernels', the morphology's, the YOLO path's
 (preamble, conv stack, decode, NMS), the bins path's (per stage), the
@@ -1263,7 +1289,7 @@ def phase_yolo(dev):
                             "windows": rates}
     out["wrapper_calls_per_frame"] = calls
     emit("yolo", **out)
-    return serve, images[0], pools[0]
+    return serve, images[0], pools[0], out
 
 
 def profile_fn(fn, n: int = 20) -> dict:
@@ -3257,6 +3283,150 @@ def phase_orchestration(run_id: str, smi: str) -> dict:
     return out
 
 
+# the soak phase: tests/test_soak.py's topology on cuda:0 (tests/soak_topology.py)
+# soaked seconds after the warm-up: 30 (the JAX soak's default is 90),
+# so that the script stays near 800 s of its 1200 s limit
+SOAK_S = 30.0
+SOAK_POLL_S = 1.0  # progress, RSS and GPU memory sampled this often
+SOAK_WARM_TIMEOUT_S = 120.0
+# GPU memory of the soak's two module processes together: nvidia-smi's
+# memory.used of the card, less its reading before they start (this
+# process's own context and cache, idle during the soak). The card's
+# machine attributes no memory to a process: ``--query-compute-apps`` lists
+# each as pid 1 with the card's whole use. Each module's caching allocator
+# reports its own peak at exit (``device memory:``). The bound: after the
+# warm-up the two may grow by twice SOAK_GPU_GROWTH_MIB. Both see one frame
+# size and at most four lanes a dispatch, so once both have run the
+# allocator stops growing; a leak of one 320x180 BGR frame per tick (30
+# ticks/s) in one module would add 155 MB in 30 s
+SOAK_GPU_GROWTH_MIB = 64.0
+SOAK_KERNELS = {"buoy": ("label_cuda", "fused_morph"), "yolo": ("nms_fixed",)}
+
+
+def gpu_memory_mib() -> dict:
+    """MiB in use on card 0 (``nvidia-smi --query-gpu=memory.used``)."""
+    used = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits", "-i", "0"],
+                          capture_output=True, text=True, check=True, timeout=30).stdout
+    return {"card": float(used.split()[0])}
+
+
+def phase_soak(run_id: str, smi: str) -> dict:
+    """The topology soak on cuda:0: a faulty synthetic ZED source, red_buoy
+    and YOLO (pico fixture) at 30 ticks/s, the source stopped and restarted
+    at 40 %; the JAX soak's bounds plus each module's GPU memory."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from soak_topology import run_soak
+
+    from cuauv_vision_pipeline_tpu_torch.core import shm
+    from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BLOCK_STUB
+
+    direction = f"smoke_{run_id}_soak"
+    logs = REPO / "smoke_logs" / f"soak_{run_id}"
+    t0 = time.monotonic()
+    try:
+        out = run_soak(SOAK_S, "0", logs, direction, poll_s=SOAK_POLL_S, warm_timeout=SOAK_WARM_TIMEOUT_S,
+                       gpu_memory=gpu_memory_mib)
+    finally:
+        for path in Path(BLOCK_STUB).parent.glob(Path(BLOCK_STUB).name + f"*{direction}*"):
+            path.unlink(missing_ok=True)
+        for name in shm.list_groups():
+            shm.delete_group(name)
+    out["seconds"] = time.monotonic() - t0
+    out["nvidia_smi"] = smi
+    for k in ("buoy", "yolo"):
+        log = (logs / f"soak_{k}.log").read_text(errors="replace")
+        assert "Device: cuda:0" in log, f"soak {k} did not run on cuda:0"
+        assert out["launches"][k] is not None, f"soak {k} logged no kernel launch counts"
+        assert out["allocator"][k] is not None, f"soak {k} logged no device memory"
+        for name in SOAK_KERNELS[k]:
+            assert out["launches"][k][name] > 0, f"soak {k} never launched {name}: {out['launches'][k]}"
+    assert out["clean_exits"][:2] == [0, 0], f"a module's SIGINT exit: {out['clean_exits']}"
+    warm, peak = out["gpu_after_warm_mb"]["card"], out["gpu_peak_mb"]["card"]
+    out["gpu_modules_mib"] = {"after_warm": warm - out["gpu_before_mb"]["card"],
+                              "peak": peak - out["gpu_before_mb"]["card"]}
+    out["gpu_growth_bound_mib"] = 2 * SOAK_GPU_GROWTH_MIB
+    assert peak <= warm + out["gpu_growth_bound_mib"], f"soak: GPU memory grew {warm} -> {peak} MiB"
+    emit("soak", **out)
+    return out
+
+
+BENCH_RESULTS = REPO / "smoke_logs" / "bench_results.json"
+
+
+def phase_report(smi: str, chain: dict, yolo: dict, module: dict, soak: dict) -> list:
+    """This run's numbers as metric objects in bench.py's schema (each with
+    the card's name and power limit), written to ``BENCH_RESULTS`` and
+    rendered by the port's ``misc.bench_report`` in a fresh process."""
+    card, power_limit = (s.strip() for s in smi.rsplit(",", 1))
+
+    def metric(name, value, unit, note, **context):
+        return {"metric": name, "value": value, "unit": unit, **context, "card": card, "power_limit": power_limit,
+                "note": note}
+
+    def spread(key, name, what):
+        s = module[key]
+        return metric(name, s["median"], "ms", f"median latency_ms of {what} over the module phase's results: "
+                      "camera stamp to result written, the module's tick wait (10 ticks/s) included",
+                      min=s["min"], max=s["max"], samples=s["samples"])
+
+    fps = chain["fps"]
+    results = [
+        metric("red_buoy_1080p_device_chain_fps_per_chip", fps["batched8_fused"]["median"], "frames/sec",
+               "the production chain on device-resident [8, 1080, 1920, 3] stacks at the disc threshold; "
+               f"median of {FPS_REPEATS} windows of {FPS_WINDOW_S} s", min=fps["batched8_fused"]["min"],
+               max=fps["batched8_fused"]["max"], lane="batched_8"),
+        metric("red_buoy_1080p_per_frame_fps", fps["per_frame_fused"]["median"], "frames/sec",
+               "the production chain on one device-resident 1080p frame a call at the disc threshold; "
+               f"median of {FPS_REPEATS} windows of {FPS_WINDOW_S} s", min=fps["per_frame_fused"]["min"],
+               max=fps["per_frame_fused"]["max"], lane="per_frame"),
+        metric("yolo_obb_1080p_event_ms_per_frame", yolo["device_decode_ms"], "ms",
+               "YoloModel.device_decode (YOLOv8n-obb, 640, bf16, seeded random init) on a device-resident "
+               "1080p ZED frame: median of 50 calls between CUDA events"),
+        metric("red_buoy_module_latency_ms", module["latency_ms"], "ms",
+               "one latency_ms reading of shm.red_buoy_results at the disc threshold: camera stamp to result "
+               "written, the module's tick wait (10 ticks/s) included"),
+        spread("yolo_latency_ms", "yolo_p50_camera_to_detection_ms", "shm.yolo_status (modules.yolo, 1080p zed "
+               "camera, seeded random init)"),
+        spread("bins_latency_ms", "bins_module_latency_ms", "shm.bins_pose (720p)"),
+        spread("stereo_latency_ms", "red_buoy_stereo_module_latency_ms", "shm.red_buoy_stereo_results"),
+        spread("multicam_latency_ms", "yolo_multicam_module_latency_ms", "shm.yolo_status (zed 720p + flir)"),
+        spread("gate_latency_ms", "yolo_gate_module_latency_ms", "shm.yolo_status (gate checkpoint, 720p)"),
+        metric("soak_recovery_s", soak["recovery_s"], "s", "source restart to both modules' next result, "
+               f"the soak of {SOAK_S} s ({soak['faults']})"),
+        metric("soak_warm_s", soak["warm_s"], "s", "soak start to both modules' third result (cold processes)"),
+        metric("soak_unwind_s", soak["unwind_s"], "s", "SIGINT to all three processes exited"),
+    ]
+    for k, name in (("buoy", "red_buoy"), ("yolo", "yolo")):
+        results += [
+            metric(f"soak_{name}_results", soak["frames"][k], "group writes",
+                   f"seq advances of its result group over the soak of {SOAK_S} s"),
+            metric(f"soak_{name}_max_gap_s", soak["max_gap_s"].get(k), "s",
+                   f"longest time without a result write, sampled every {SOAK_POLL_S} s, outside the outage "
+                   "(no finer than the poller's longest interval)", longest_poll_s=soak["max_poll_s"]),
+            metric(f"soak_{name}_rss_peak_mb", soak["rss_peak_mb"][k], "MB", "peak RSS over the soak",
+                   after_warm=soak["rss_after_warm_mb"][k]),
+            metric(f"soak_{name}_allocator_peak_mib", soak["allocator"][k]["max_reserved_mib"], "MiB",
+                   "the module's caching allocator at its peak over its run (its CUDA context not in it)",
+                   max_allocated=soak["allocator"][k]["max_allocated_mib"]),
+        ]
+    results.append(metric("soak_modules_gpu_peak_mib", soak["gpu_modules_mib"]["peak"], "MiB",
+                          "nvidia-smi memory.used of the card over the soak less its use before the modules started: "
+                          "both module processes, CUDA contexts included", after_warm=soak["gpu_modules_mib"]["after_warm"]))
+    BENCH_RESULTS.parent.mkdir(parents=True, exist_ok=True)
+    BENCH_RESULTS.write_text(json.dumps(results, indent=1))
+    proc = subprocess.run([sys.executable, "-m", "cuauv_vision_pipeline_tpu_torch.misc.bench_report",
+                           str(BENCH_RESULTS)], cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, f"bench_report exited {proc.returncode}: {proc.stderr[-2000:]}"
+    BENCH_RESULTS.with_name("bench_report.md").write_text(proc.stdout)
+    head, _, table = proc.stdout.partition("## All metrics")
+    rows = [line for line in table.splitlines() if line.startswith("| ") and not line.startswith("| metric |")]
+    assert len(rows) == len(results), f"the report's All metrics table has {len(rows)} rows for {len(results)}"
+    targets = [line for line in head.splitlines() if line.startswith("| ") and not line.startswith("| metric |")]
+    emit("report", path=str(BENCH_RESULTS.relative_to(REPO)), metrics=len(results), targets=targets)
+    return results
+
+
 MESH_KERNELS = ("fused_morph", "label_cuda", "spacing_select", "nms_fixed")
 MESH_FANOUT_ROUNDS = 50
 MESH_TIMED_STEPS = 5
@@ -3629,8 +3799,8 @@ def main() -> int:
             counts[name] += n
         return result
 
-    run_path("red_buoy", lambda: phase_chain(dev, frames))
-    serve, image, pool = run_path("yolo", lambda: phase_yolo(dev))
+    chain = run_path("red_buoy", lambda: phase_chain(dev, frames))
+    serve, image, pool, yolo = run_path("yolo", lambda: phase_yolo(dev))
     run_path("yolo_tasks", lambda: phase_yolo_tasks(dev))
     card, bins_image, bins_wall_ms = run_path("bins", lambda: phase_bins(dev))
     stereo_in, stereo_wall_ms = run_path("stereo", lambda: phase_stereo(dev))
@@ -3638,11 +3808,13 @@ def main() -> int:
     correction = run_path("correction", lambda: phase_correction(dev))
     run_path("train", lambda: phase_train(dev, run_id))
     module = phase_module(run_id)
+    soak = phase_soak(run_id, smi)
+    phase_report(smi, chain, yolo, module, soak)
     orchestration = phase_orchestration(run_id, smi)
-    for key, launched in (*module.items(), *orchestration.items()):
-        if key.endswith("_launches"):
-            for name, n in launched.items():
-                counts[name] += n
+    logged = [v for k, v in (*module.items(), *orchestration.items()) if k.endswith("_launches")]
+    for launched in (*logged, *soak["launches"].values()):
+        for name, n in launched.items():
+            counts[name] += n
     run_path("library", lambda: phase_library(dev, smi))
     # the mesh's rank processes count their own launches
     for name, n in phase_mesh(dev, smi)["mesh_launches"].items():
@@ -3659,6 +3831,7 @@ def main() -> int:
     phase_multicam_device(*multicam, rate)
     phase_correction_device(*correction)
 
+    emit("total", seconds=time.monotonic() - _T0)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

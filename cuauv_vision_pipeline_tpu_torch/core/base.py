@@ -1034,6 +1034,14 @@ class ModuleBase(ABC):
                     pass
 
         logger(f"kernel launches: {json.dumps(launch_counts())}", True)
+        if self.device.type == "cuda":
+            # the caching allocator's use over the run (the CUDA context's
+            # own memory is not in it)
+            mib = float(2**20)
+            memory = {"reserved_mib": torch.cuda.memory_reserved(self.device) / mib,
+                      "max_reserved_mib": torch.cuda.max_memory_reserved(self.device) / mib,
+                      "max_allocated_mib": torch.cuda.max_memory_allocated(self.device) / mib}
+            logger(f"device memory: {json.dumps(memory)}", True)
         logger(f"Cleaning {self.__class__.__name__}", True)
         if getattr(self, "_abandoned_inflight", False):
             # abandoned in-flight device work means runtime worker threads

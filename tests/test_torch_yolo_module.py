@@ -193,7 +193,9 @@ def test_yolo_module_entry_point_on_cpu(unique_direction):
 def yolo_entry_scenario(unique_direction: str) -> None:
     namespace = f"test-{uuid.uuid4().hex[:10]}"
     os.environ[tshm.NAMESPACE_ENV] = namespace
-    env = {**os.environ, "PYTHONPATH": str(REPO), "CUAUV_YOLO_WEIGHT": str(FIXTURE)}
+    # one torch CPU thread per process: a thread per core on a loaded host
+    # waits at every op's barrier for descheduled threads
+    env = {**os.environ, "PYTHONPATH": str(REPO), "CUAUV_YOLO_WEIGHT": str(FIXTURE), "OMP_NUM_THREADS": "1"}
     status = tshm.yolo_status
     status.set(frames=0, latency_ms=0.0)
     procs = []

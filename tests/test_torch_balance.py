@@ -32,6 +32,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.ops import balance as jbal
 from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame

@@ -24,6 +24,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
 from cuauv_vision_pipeline_tpu_torch.modules import preprocessor as P

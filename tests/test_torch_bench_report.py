@@ -11,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_cpu_pool import CHILD_ENV  # and torch's CPU pool at one thread
 
 from cuauv_vision_pipeline_tpu.misc import bench_report as jax_report
 from cuauv_vision_pipeline_tpu_torch.misc import bench_report
@@ -125,7 +126,7 @@ def test_main_renders_in_a_fresh_process_without_jax(tmp_path):
         "print('RC', rc, 'BAD', bad, file=sys.stderr)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code, str(path)], cwd=REPO, capture_output=True, text=True,
-                          timeout=60, env={**os.environ, "PYTHONPATH": str(REPO)})
+                          timeout=60, env={**os.environ, "PYTHONPATH": str(REPO), **CHILD_ENV})
     assert proc.returncode == 0, proc.stderr
     assert "RC 0 BAD []" in proc.stderr, proc.stderr
     assert proc.stdout == render(results) + "\n"

@@ -24,6 +24,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.ops import feature as jF
 from cuauv_vision_pipeline_tpu.utils import feature as jUF

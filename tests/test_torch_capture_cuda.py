@@ -15,6 +15,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu_torch.capture_sources.zed import _postprocess_fn
 

@@ -12,6 +12,7 @@ import pytest
 import scipy.ndimage as ndi
 import torch
 from ccl_seam_masks import SMALL as SEAM_CASES
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.ops import ccl as jccl
 from cuauv_vision_pipeline_tpu.ops.pallas.ccl_kernel import label_pallas

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 from ccl_seam_masks import SMALL, anti_diagonal, noise, seam_grid, seam_lines
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu_torch.ops.ccl import label, label_fast
 from cuauv_vision_pipeline_tpu_torch.ops.cuda import label_cuda, label_cuda_batched

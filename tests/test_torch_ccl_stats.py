@@ -4,6 +4,7 @@ the JAX package on the CPU, and the kernel wrappers' CPU routing."""
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.ops import ccl as jccl
 from cuauv_vision_pipeline_tpu.ops.pallas.ccl_kernel import label_pallas_batched

@@ -7,6 +7,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.capture_sources.synthetic import buoy_frame
 from cuauv_vision_pipeline_tpu.engine import chains as jchains

@@ -24,6 +24,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.ops import color as jcolor
 from cuauv_vision_pipeline_tpu.ops import color_np as jcolor_np

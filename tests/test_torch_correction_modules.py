@@ -28,6 +28,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.core import shm as jshm
 from cuauv_vision_pipeline_tpu.modules import auto_calibrate as jac

@@ -6,6 +6,7 @@ asked and on cuda:0 by default."""
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu_torch.entry import entry
 

@@ -21,6 +21,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from spacing_cases import cases as spacing_cases
 from spacing_cases import greedy
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.capture_sources.synthetic import bin_texture, bins_frame
 from cuauv_vision_pipeline_tpu.ops import feature as jfeature

@@ -33,6 +33,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu_torch.core.bindings.fault_injection import FaultPlan
 from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import (

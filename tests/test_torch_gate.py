@@ -19,6 +19,7 @@ import uuid
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.capture_sources import synthetic as jsynthetic
 from cuauv_vision_pipeline_tpu.core import shm as jshm

@@ -12,6 +12,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.capture_sources import image_directory as jdir
 from cuauv_vision_pipeline_tpu_torch.capture_sources import image_directory as tdir

@@ -26,6 +26,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 import cv2
 from cuauv_vision_pipeline_tpu import stdlib as jstdlib

@@ -25,6 +25,7 @@ package:
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import buoy_frame
 from cuauv_vision_pipeline_tpu_torch.engine.chains import HsvMaskPipeline

@@ -32,6 +32,7 @@ import optax
 import pytest
 import torch
 from torch import nn
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.models.yolo import train as jtrain
 from cuauv_vision_pipeline_tpu.models.yolo.model import create_model as jcreate

@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_cpu_pool import CHILD_ENV  # and torch's CPU pool at one thread
 
 from cuauv_vision_pipeline_tpu.core import shm as jshm
 from cuauv_vision_pipeline_tpu.core.base import ModuleManager as JModuleManager
@@ -209,7 +210,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-        timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)},
+        timeout=120, env={**os.environ, "PYTHONPATH": str(REPO), **CHILD_ENV},
     )
     assert proc.returncode == 0, proc.stderr
 

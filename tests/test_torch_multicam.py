@@ -29,6 +29,7 @@ import pytest
 import torch
 from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.models.yolo.predictor import YoloModel as JYoloModel
 from cuauv_vision_pipeline_tpu.modules import yolo_multicam as jmulticam

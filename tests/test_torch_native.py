@@ -22,6 +22,7 @@ import subprocess
 from pathlib import Path
 
 import pytest
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu_torch import native
 from test_torch_private_shm import namespace_prefix

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from nms_cases import cases
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu_torch.models.yolo.decode import decode
 from cuauv_vision_pipeline_tpu_torch.ops.cuda import nms_fixed_cuda

@@ -26,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.core import config as jconfig
 from cuauv_vision_pipeline_tpu.core import shm as jshm
@@ -255,16 +256,16 @@ def test_toggler_runs_the_real_red_buoy_on_the_cpu(tmp_path):
     and the module's MJPEG post come through; the toggle-off stops it. In a
     /dev/shm of its own (``run_private``), where no other test's clean-up
     unlinks the source's block or the results group. The module keeps
-    torch's CPU pool to one thread (``OMP_NUM_THREADS=1``): at a thread per
-    core, beside the suite's other workers on every core, each of the
-    chain's small ops waits at its thread barrier for descheduled threads
-    (``scripts/cpu_pool_under_load.py``: a chain call 15.5 s, not 0.05 s) and
-    the first result missed the wait."""
+    torch's CPU pool to one thread (``run_private`` gives it ``CHILD_ENV``):
+    at a thread per core, beside the suite's other workers on every core,
+    each of the chain's small ops waits at its thread barrier for
+    descheduled threads (``scripts/cpu_pool_under_load.py``: a chain call
+    15.5 s, not 0.05 s) and the first result missed the wait."""
     run_private(toggler_scenario, str(tmp_path))
 
 
 def toggler_scenario(tmp: str) -> None:
-    os.environ.update({"CUAUV_LOG": tmp, "CUAUV_TPU_DEVICE": "cpu", "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1",
+    os.environ.update({"CUAUV_LOG": tmp, "CUAUV_TPU_DEVICE": "cpu", "PYTHONPATH": str(REPO),
                        tshm.NAMESPACE_ENV: f"torch-orch-{uuid.uuid4().hex[:8]}"})
     direction = f"torch_orch_{uuid.uuid4().hex[:8]}"
     vehicle.vision_modules, vehicle.module_devices = {"red_buoy": [direction]}, {}

@@ -27,6 +27,8 @@ import uuid
 from pathlib import Path
 from typing import Callable, Tuple
 
+from torch_cpu_pool import CHILD_ENV  # and torch's CPU pool at one thread
+
 REPO = Path(__file__).resolve().parents[1]
 SHM_DIR = "/dev/shm"
 # mount a tmpfs on /dev/shm, then run the command given after the script
@@ -50,12 +52,14 @@ def namespace_prefix() -> Tuple[str, ...]:
 
 def run_private(fn: Callable, *args, timeout: float = 240.0) -> subprocess.CompletedProcess:
     """``fn(*args)`` (JSON arguments) in a child Python with a /dev/shm of
-    its own; an AssertionError carrying the child's output if it fails."""
+    its own and torch's CPU pool at one thread (``CHILD_ENV``, inherited by
+    every process it starts); an AssertionError carrying the child's output
+    if it fails."""
     prefix = namespace_prefix()
     if not prefix:
         print("run_private: no mount namespace here; the child shares /dev/shm", file=sys.stderr)
     tests = str(Path(__file__).resolve().parent)
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(REPO), tests])}
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(REPO), tests]), **CHILD_ENV}
     proc = subprocess.run([*prefix, sys.executable, "-c", _CHILD, fn.__module__, fn.__name__, json.dumps(args)],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
     assert proc.returncode == 0, (f"{fn.__name__} failed in its child (rc {proc.returncode}):\n"

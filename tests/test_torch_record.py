@@ -23,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.capture_sources import video as jvideo
 from cuauv_vision_pipeline_tpu.core import shm as jshm

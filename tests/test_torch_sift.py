@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.capture_sources.synthetic import bin_texture, bins_frame
 from cuauv_vision_pipeline_tpu.ops.color_np import bgr_to_gray_np

@@ -10,9 +10,9 @@ Opt in with the soak's seconds, as for the JAX soak:
 
 It runs in a /dev/shm of its own (``run_private``), so neither another
 test's clean-up nor a bus of the machine's shares its blocks. Each module
-keeps torch's CPU pool to one thread (``OMP_NUM_THREADS=1``): at its
-default (a thread per core) on a loaded host every small op's thread
-barrier waits on descheduled threads. ``chip_smoke.py``'s ``soak`` phase
+keeps torch's CPU pool to one thread (``run_private`` gives it
+``CHILD_ENV``): at its default (a thread per core) on a loaded host every
+small op's thread barrier waits on descheduled threads. ``chip_smoke.py``'s ``soak`` phase
 runs the same topology on cuda:0.
 """
 
@@ -22,6 +22,7 @@ import uuid
 from pathlib import Path
 
 import pytest
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from test_torch_private_shm import run_private
 
@@ -31,7 +32,7 @@ def soak_scenario(seconds: float, log_dir: str) -> None:
 
     os.environ["CUAUV_SHM_NAMESPACE"] = f"torch-soak-{uuid.uuid4().hex[:8]}"
     counters = run_soak(seconds, "cpu", Path(log_dir), f"torch_soak_{uuid.uuid4().hex[:8]}",
-                        env={"CUAUV_TPU_DEVICE": "cpu", "OMP_NUM_THREADS": "1"})
+                        env={"CUAUV_TPU_DEVICE": "cpu"})
     print("SOAK_RESULT " + json.dumps(counters))
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from spacing_cases import cases, greedy
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import bin_texture, bins_frame
 from cuauv_vision_pipeline_tpu_torch.ops.color_np import bgr_to_gray_np

@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.ops import threshold as jT
 from cuauv_vision_pipeline_tpu.utils import color as jUC

@@ -12,6 +12,7 @@
   with no ffmpeg/ffplay on the PATH, report it as the JAX tools do.
 """
 
+import os
 import subprocess
 import sys
 import threading
@@ -21,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_cpu_pool import CHILD_ENV  # and torch's CPU pool at one thread
 
 from cuauv_vision_pipeline_tpu.core.bindings.frame_bus import BlockAccessor as JBlockAccessor
 from cuauv_vision_pipeline_tpu.core.bindings.frame_bus import ReadStatus as JReadStatus
@@ -145,5 +147,6 @@ def test_diffmovies_without_a_display_reports_as_jax(tmp_path, monkeypatch, caps
 def test_tools_run_as_modules():
     for tool in ("image_ordering_test", "webcam_latency_test", "log_fixer", "diffmovies"):
         proc = subprocess.run([sys.executable, "-m", f"cuauv_vision_pipeline_tpu_torch.misc.{tool}", "--help"],
-                              cwd=REPO, capture_output=True, text=True, timeout=60)
+                              cwd=REPO, capture_output=True, text=True, timeout=60,
+                              env={**os.environ, **CHILD_ENV})
         assert proc.returncode == 0 and "usage:" in proc.stdout, proc.stderr

@@ -21,6 +21,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.ops import morphology as jmorph
 from cuauv_vision_pipeline_tpu.ops import transform as jx

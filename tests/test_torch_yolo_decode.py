@@ -14,6 +14,7 @@ import pytest
 import torch
 from nms_cases import cases as nms_cases
 from nms_cases import poles
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.models.yolo import decode as jdecode
 from cuauv_vision_pipeline_tpu_torch.models.yolo import decode as tdecode

@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 import cuauv_vision_pipeline_tpu.core.shm as jshm
 import cuauv_vision_pipeline_tpu.handlers.torpedoes as jtorpedoes
@@ -193,9 +194,10 @@ def test_yolo_module_entry_point_on_cpu(unique_direction):
 def yolo_entry_scenario(unique_direction: str) -> None:
     namespace = f"test-{uuid.uuid4().hex[:10]}"
     os.environ[tshm.NAMESPACE_ENV] = namespace
-    # one torch CPU thread per process: a thread per core on a loaded host
-    # waits at every op's barrier for descheduled threads
-    env = {**os.environ, "PYTHONPATH": str(REPO), "CUAUV_YOLO_WEIGHT": str(FIXTURE), "OMP_NUM_THREADS": "1"}
+    # one torch CPU thread per process (run_private's CHILD_ENV): a thread
+    # per core on a loaded host waits at every op's barrier for descheduled
+    # threads
+    env = {**os.environ, "PYTHONPATH": str(REPO), "CUAUV_YOLO_WEIGHT": str(FIXTURE)}
     status = tshm.yolo_status
     status.set(frames=0, latency_ms=0.0)
     procs = []

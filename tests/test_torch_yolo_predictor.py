@@ -15,6 +15,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.models.yolo.predictor import YoloModel as JYoloModel
 from cuauv_vision_pipeline_tpu_torch.models.yolo.predictor import YoloModel

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.models.yolo.model import create_model as jcreate
 from cuauv_vision_pipeline_tpu.models.yolo.predictor import _w8a8_conv_interceptor, quantize_weights_int8

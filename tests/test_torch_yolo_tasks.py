@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.models.yolo import decode as jdecode
 from cuauv_vision_pipeline_tpu.models.yolo.model import YOLO as JYOLO

@@ -21,6 +21,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu_torch.core.device import full_f32
 from cuauv_vision_pipeline_tpu_torch.entry import train_step_entry

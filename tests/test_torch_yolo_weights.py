@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 from flax import serialization
+import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
 
 from cuauv_vision_pipeline_tpu.models.yolo.model import YOLO as JYOLO
 from cuauv_vision_pipeline_tpu.models.yolo.weights import export_ultralytics_state

@@ -118,7 +118,10 @@ def run(argv: Optional[List[str]] = None) -> Dict:
     if args.dp * args.tp == 1:
         return _train(args, resolve_device(args.device))
     print(f"[train] mesh: dp={args.dp} tp={args.tp} ({args.dp * args.tp} ranks, {args.backend})", flush=True)
-    return launch(_train_rank, args.dp * args.tp, args.backend, args.device, args=(args,))[0]
+    # launch's bound covers the whole run after the ranks join, and a run
+    # of --steps on the CPU can take well past its default 300 s
+    return launch(_train_rank, args.dp * args.tp, args.backend, args.device, args=(args,),
+                  timeout_s=3600.0)[0]
 
 
 def _train_rank(device, args: argparse.Namespace) -> Dict:

@@ -18,6 +18,8 @@ groups of the caller's data group and model group. :func:`launch` starts
 the ranks: one process each (``torch.multiprocessing`` spawn), joined by a
 ``file://`` rendezvous in a temporary directory (no TCP port), each running
 ``fn(device, *args)`` and handing its return value back to the caller.
+Its wait for the ranks is bounded: a rank still running past the bound is
+terminated, with the rest, and the launch raises.
 
 The backend is the caller's choice and nothing changes it: ``nccl`` with
 one card per rank (rank r on ``cuda:r``), or ``gloo`` for ranks on the CPU
@@ -30,6 +32,7 @@ import datetime
 import os
 import shutil
 import tempfile
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -294,6 +297,11 @@ def gather_params(results: Sequence[Dict[str, torch.Tensor]], grid: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
+# a spawned rank's start (interpreter, torch, this package) before it
+# reaches the rendezvous, which ``timeout_s`` bounds from there
+STARTUP_S = 120.0
+
+
 def _rank_main(rank: int, n: int, backend: str, device: Optional[str], workdir: str,
                timeout_s: float, fn: Callable, args: tuple) -> None:
     if backend == "nccl":
@@ -309,12 +317,41 @@ def _rank_main(rank: int, n: int, backend: str, device: Optional[str], workdir: 
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     dist.init_process_group(backend, init_method="file://" + os.path.join(workdir, "rendezvous"),
                             world_size=n, rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    open(os.path.join(workdir, f"joined{rank}"), "w").close()
     try:
         result = fn(dev, *args)
         dist.barrier()
     finally:
         dist.destroy_process_group()
     torch.save(result, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def _join(ctx, workdir: str, n: int, timeout_s: float) -> None:
+    """Wait for the ranks: up to ``STARTUP_S + timeout_s`` until every rank
+    has joined the group, then up to ``timeout_s`` more. A rank that raises
+    ends the wait (``ctx.join`` terminates the others and raises its
+    traceback); at the bound, a TimeoutError naming the ranks still alive."""
+    deadline = time.monotonic() + STARTUP_S + timeout_s
+    joined = False
+    while not ctx.join(timeout=0.5):
+        if not joined and all(os.path.exists(os.path.join(workdir, f"joined{r}")) for r in range(n)):
+            joined, deadline = True, time.monotonic() + timeout_s
+        if time.monotonic() > deadline:
+            alive = ", ".join(f"rank {r} (pid {p.pid})" for r, p in enumerate(ctx.processes) if p.is_alive())
+            phase = (f"{timeout_s:g} s after every rank joined the group" if joined else
+                     f"{STARTUP_S + timeout_s:g} s after the spawn, before every rank joined the group")
+            raise TimeoutError(f"mesh.launch: {alive} still running {phase}; terminated")
+
+
+def _stop(processes) -> None:
+    for p in processes:
+        if p.is_alive():
+            p.terminate()
+    for p in processes:
+        p.join(10)
+        if p.is_alive():
+            p.kill()
+            p.join()
 
 
 def launch(fn: Callable, n: int, backend: str = "nccl", device=None, args: tuple = (),
@@ -328,7 +365,11 @@ def launch(fn: Callable, n: int, backend: str = "nccl", device=None, args: tuple
     ``"gloo"`` puts every rank on ``device`` (``cuda:0`` unless told, or
     ``"cpu"``): a given device means gloo. A rank that
     raises, or a collective that waits past ``timeout_s``, fails the
-    launch with that rank's traceback."""
+    launch with that rank's traceback. ``timeout_s`` also bounds the wait
+    for the ranks: their start up to the rendezvous gets ``STARTUP_S`` more,
+    their run after it (``fn`` and the closing barrier) ``timeout_s``; a
+    rank still alive at the bound is terminated, with every other, and the
+    launch raises a TimeoutError naming it."""
     if backend == "nccl":
         if device is not None:
             raise ValueError("nccl puts rank r on cuda:r; pass no device")
@@ -341,9 +382,13 @@ def launch(fn: Callable, n: int, backend: str = "nccl", device=None, args: tuple
         raise ValueError(f"unknown backend {backend!r} (nccl or gloo)")
     workdir = tempfile.mkdtemp(prefix="mesh-")
     try:
-        torch.multiprocessing.start_processes(
+        ctx = torch.multiprocessing.start_processes(
             _rank_main, args=(n, backend, device, workdir, timeout_s, fn, args), nprocs=n,
-            join=True, start_method="spawn")
+            join=False, start_method="spawn")
+        try:
+            _join(ctx, workdir, n, timeout_s)
+        finally:
+            _stop(ctx.processes)
         return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False) for r in range(n)]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

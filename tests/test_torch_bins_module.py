@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
+from test_torch_private_shm import opened_within
 
 from cuauv_vision_pipeline_tpu.capture_sources.synthetic import bin_texture, bins_frame
 from cuauv_vision_pipeline_tpu.core import shm as jshm
@@ -195,7 +196,7 @@ def test_bins_module_binds_any_direction_and_posts(unique_direction, pose_groups
     time.sleep(0.3)
     quit_flag = threading.Event()
     try:
-        with module._module_manager:
+        with opened_within(module._module_manager):
             loop = threading.Thread(target=module._loop, args=(quit_flag, log.t))
             loop.start()
             deadline = time.monotonic() + 60

@@ -3,13 +3,18 @@ CPU: the ZED source under a test double of the ZED SDK
 (``tests/fake_sdk/pyzed``, put into ``sys.modules`` per test), its
 postprocess bit-exact against JAX's jitted one, ``EmaTimer``, the webcam
 source under a stand-in ``cv2.VideoCapture``, the JPEG stream bridge and the
-shm bridge, each JAX -> port and port -> JAX (these need ``zmq``).
+shm bridge, each JAX -> port and port -> JAX (these need ``zmq``). The JPEG
+bridge runs in a child Python with a /dev/shm of its own (``run_private``):
+one binding opens the block the other made, through its file, which another
+test's clean-up may unlink.
 
 Port groups live in a namespace of this file's own (``CUAUV_SHM_NAMESPACE``),
 JAX groups under unique names, so no other test sees them."""
 
+import glob
 import importlib.util
 import json
+import os
 import sys
 import threading
 import time
@@ -20,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
+from test_torch_private_shm import STRANDED_S, namespace_prefix, opened_within, returns_within, run_private
 
 from cuauv_vision_pipeline_tpu.capture_sources import generic_camera as jcam
 from cuauv_vision_pipeline_tpu.capture_sources import zed as jzed
@@ -28,7 +34,7 @@ from cuauv_vision_pipeline_tpu.engine.executor import EmaTimer as JEmaTimer
 from cuauv_vision_pipeline_tpu_torch.capture_sources import generic_camera as tcam
 from cuauv_vision_pipeline_tpu_torch.capture_sources import zed as tzed
 from cuauv_vision_pipeline_tpu_torch.core import shm as tshm
-from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BlockAccessor, ReadStatus
+from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BLOCK_STUB, BlockAccessor, ReadStatus
 from cuauv_vision_pipeline_tpu_torch.core.capture_source import FpsLimiter
 from cuauv_vision_pipeline_tpu_torch.engine.executor import EmaTimer
 
@@ -220,18 +226,21 @@ def test_generic_camera_with_a_fake_video_capture(monkeypatch, module):
 
 
 def _read_one(direction: str, timeout: float = 10.0):
-    """The first frame of bus block ``direction`` (waits for the block)."""
+    """The first frame of bus block ``direction``: waits up to ``timeout`` s
+    for the block and a frame in it, then raises TimeoutError. The open comes
+    after the block is there, since an open waits for ever for a block that
+    is not."""
     deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline:
-        try:
-            with BlockAccessor(direction) as reader:
-                while time.monotonic() < deadline:
-                    status, data, _ = reader.read_frame()
-                    if status == ReadStatus.SUCCESS:
-                        return np.array(data)
-                    time.sleep(0.02)
-        except (FileNotFoundError, RuntimeError, OSError):
-            time.sleep(0.05)
+    while not os.path.exists(BLOCK_STUB + direction):
+        if time.monotonic() >= deadline:
+            raise TimeoutError(f"no block {direction}")
+        time.sleep(0.02)
+    with opened_within(BlockAccessor(direction)) as reader:
+        while time.monotonic() < deadline:
+            status, data, _ = reader.read_frame()
+            if status == ReadStatus.SUCCESS:
+                return np.array(data)
+            time.sleep(0.02)
     raise TimeoutError(f"no frame on {direction}")
 
 
@@ -254,17 +263,42 @@ def test_jpeg_codec_matches_jax():
     np.testing.assert_array_equal(stream_client.decode_jpeg(payload), jclient.decode_jpeg(payload))
 
 
-@pytest.mark.parametrize("route", ["jax_to_port", "port_to_jax"])
-def test_stream_bridge_across_packages(route):
-    zmq = pytest.importorskip("zmq")  # noqa: F841
+def _bridge_ends(route: str):
+    """The server and client modules of ``route``, and the expected frame."""
     from cuauv_vision_pipeline_tpu.capture_sources import stream_client as jclient
     from cuauv_vision_pipeline_tpu.capture_sources import stream_server as jserver
     from cuauv_vision_pipeline_tpu_torch.capture_sources import stream_client as tclient
     from cuauv_vision_pipeline_tpu_torch.capture_sources import stream_server as tserver
 
     server, client = (jserver, tclient) if route == "jax_to_port" else (tserver, jclient)
-    direction = f"strm_{uuid.uuid4().hex[:8]}"
-    endpoint = f"tcp://127.0.0.1:{20000 + int(uuid.uuid4().hex[:4], 16) % 10000}"
+    return server, client, tclient.decode_jpeg(tserver.encode_jpeg(_smooth_frame(), 90))
+
+
+def _endpoint() -> str:
+    return f"tcp://127.0.0.1:{20000 + int(uuid.uuid4().hex[:4], 16) % 10000}"
+
+
+def _cross(writer, frame, direction: str):
+    """Write a new frame until one crosses the bridge (15 s)."""
+    deadline = time.monotonic() + 15
+    while time.monotonic() < deadline:
+        writer.write_frame(123, frame)  # the server sends each new frame once
+        try:
+            return _read_one(direction + "_stream", timeout=0.5)
+        except TimeoutError:
+            continue
+    raise AssertionError("no frame crossed the bridge")
+
+
+@pytest.mark.parametrize("route", ["jax_to_port", "port_to_jax"])
+def test_stream_bridge_across_packages(route):
+    pytest.importorskip("zmq")
+    run_private(stream_bridge_scenario, route, f"strm_{uuid.uuid4().hex[:8]}")
+
+
+def stream_bridge_scenario(route: str, direction: str) -> None:
+    server, client, want = _bridge_ends(route)
+    endpoint = _endpoint()
     frame = _smooth_frame()
     with BlockAccessor(direction, max_entry_size_bytes=frame.nbytes + 4096) as writer:
         writer.write_frame(123, frame)
@@ -274,23 +308,107 @@ def test_stream_bridge_across_packages(route):
         receiving = threading.Thread(target=receiver.run_event_loop)
         receiving.start()
         try:
-            deadline = time.monotonic() + 15
-            while time.monotonic() < deadline:
-                writer.write_frame(123, frame)  # the server sends each new frame once
-                try:
-                    got = _read_one(direction + "_stream", timeout=0.5)
-                    break
-                except TimeoutError:
-                    continue
-            else:
-                raise AssertionError("no frame crossed the bridge")
+            got = _cross(writer, frame, direction)
         finally:
             receiver.quit_flag.set()
             receiving.join(timeout=10)
     serving.join(timeout=10)  # the source block's deletion ends serve()
     assert not receiving.is_alive() and not serving.is_alive()
-    want = tclient.decode_jpeg(tserver.encode_jpeg(frame, 90))
     np.testing.assert_array_equal(got, want)
+
+
+def test_a_frame_sent_before_the_subscriber_joins_strands_an_unbounded_read():
+    """Why ``test_stream_bridge_across_packages[jax_to_port]`` never ended:
+    the server sends each new frame once, and a subscriber that joins after
+    it misses it. The client then makes no ``_stream`` block, and the
+    bridge loop's read, an open of that block, waited for ever, so the loop
+    wrote no new frame. Here the frames are sent before the client joins: an
+    open of its block does not return, and ``_read_one`` raises within its
+    bound, so the loop's next frame crosses."""
+    pytest.importorskip("zmq")
+    run_private(dropped_frame_scenario, f"strm_{uuid.uuid4().hex[:8]}", timeout=120)
+
+
+def dropped_frame_scenario(direction: str) -> None:
+    import zmq
+
+    server, client, want = _bridge_ends("jax_to_port")
+    endpoint = _endpoint()
+    frame = _smooth_frame()
+    probe = zmq.Context.instance().socket(zmq.SUB)
+    probe.setsockopt(zmq.SUBSCRIBE, b"")
+    probe.setsockopt(zmq.RCVTIMEO, 1000)
+    with BlockAccessor(direction, max_entry_size_bytes=frame.nbytes + 4096) as writer:
+        serving = threading.Thread(target=server.serve, args=(direction, endpoint, 20, 90), daemon=True)
+        serving.start()
+        probe.connect(endpoint)
+        deadline = time.monotonic() + 30
+        while True:  # new frames until the probe has one, then until the server sends no more
+            assert time.monotonic() < deadline, "the probe never received a frame"
+            writer.write_frame(123, frame)
+            try:
+                probe.recv_multipart()
+                break
+            except zmq.Again:
+                continue
+        while True:
+            try:
+                probe.recv_multipart()
+            except zmq.Again:
+                break
+        receiver = client.StreamClient(endpoint, suffix="_stream")
+        receiving = threading.Thread(target=receiver.run_event_loop)
+        receiving.start()
+        try:
+            assert not returns_within(BlockAccessor(direction + "_stream"), STRANDED_S), \
+                "the client made its block from a frame sent before it joined"
+            t0 = time.monotonic()
+            with pytest.raises(TimeoutError, match="no block"):
+                _read_one(direction + "_stream", timeout=0.5)
+            assert time.monotonic() - t0 < STRANDED_S
+            got = _cross(writer, frame, direction)
+        finally:
+            receiver.quit_flag.set()
+            receiving.join(timeout=10)
+    serving.join(timeout=10)
+    probe.close(linger=0)
+    assert not receiving.is_alive() and not serving.is_alive()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_stream_bridge_ends_while_a_clean_up_unlinks_its_blocks():
+    """``clean_bus`` at its worst: a thread of this process unlinks, every
+    20 ms, each file of the shared /dev/shm that names the bridge's
+    direction (only those: other tests' blocks are left alone). The bridge,
+    in a /dev/shm of its own, ends and passes, and the parent never sees
+    its blocks."""
+    pytest.importorskip("zmq")
+    direction = f"strm_{uuid.uuid4().hex[:8]}"
+    stop, unlinked = threading.Event(), []
+
+    def unlink_every_20_ms():
+        while not stop.is_set():
+            for path in glob.glob(f"{BLOCK_STUB}*{direction}*"):
+                try:
+                    os.unlink(path)
+                    unlinked.append(path)
+                except OSError:
+                    pass
+            stop.wait(0.02)
+
+    unlinker = threading.Thread(target=unlink_every_20_ms, daemon=True)
+    unlinker.start()
+    try:
+        run_private(stream_bridge_scenario, "jax_to_port", direction)
+    except AssertionError as e:
+        if not namespace_prefix():
+            raise AssertionError("no mount namespace here: the bridge shared /dev/shm with the "
+                                 f"unlinker ({len(unlinked)} files unlinked)\n{e}") from None
+        raise
+    finally:
+        stop.set()
+        unlinker.join(timeout=5)
+    assert not unlinked or not namespace_prefix(), unlinked
 
 
 # --- the shm bridge -------------------------------------------------------------

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
+from test_torch_private_shm import opened_within
 
 from cuauv_vision_pipeline_tpu.core import shm as jshm
 from cuauv_vision_pipeline_tpu.modules import auto_calibrate as jac
@@ -229,7 +230,7 @@ def test_color_balance_through_the_bus(unique_direction):
     module = CB([unique_direction], copy.deepcopy(tcb.module_tuners), fps=30, argv=["--device", "cpu"])
     quit_flag = threading.Event()
     try:
-        with module._module_manager:
+        with opened_within(module._module_manager):
             loop = threading.Thread(target=module._loop, args=(quit_flag, log.t))
             loop.start()
             deadline = time.monotonic() + 30

@@ -43,7 +43,7 @@ from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import (
     WriteStatus,
     frame_bytes,
 )
-from test_torch_private_shm import run_private
+from test_torch_private_shm import enter_within, opened_within, run_private
 
 REPO = Path(__file__).resolve().parents[1]
 # the two bindings of one native bus; the JAX one is imported where a case
@@ -75,7 +75,7 @@ def writer_and_reader(pair, direction, size):
         if pair[0] == pair[1]:
             yield writer, writer
         else:
-            with binding(pair[1]).BlockAccessor(direction) as reader:
+            with opened_within(binding(pair[1]).BlockAccessor(direction)) as reader:
                 yield writer, reader
 
 
@@ -173,8 +173,7 @@ def test_framework_deleted_propagates(unique_direction, pair):
     writer = binding(pair[0]).BlockAccessor(unique_direction, img.nbytes)
     writer.__enter__()
     writer.write_frame(1, img)
-    reader = binding(pair[1]).BlockAccessor(unique_direction)
-    reader.__enter__()
+    reader = enter_within(binding(pair[1]).BlockAccessor(unique_direction))
     status, _, _ = reader.read_frame()
     assert status.name == "SUCCESS"
     writer.__exit__(None, None, None)  # creator teardown
@@ -208,7 +207,7 @@ def test_blocking_read_wakes_on_write(unique_direction, pair):
             time.sleep(0.15)
             writer.write_frame(42, img)
 
-        with binding(pair[1]).BlockAccessor(unique_direction, block_thread=True) as reader:
+        with opened_within(binding(pair[1]).BlockAccessor(unique_direction, block_thread=True)) as reader:
             t = threading.Thread(target=delayed_write)
             t.start()
             start = time.monotonic()
@@ -263,7 +262,7 @@ def test_seqlock_no_torn_reads_under_concurrent_writer(unique_direction, pair):
     write, while a writer thread hammers the ring."""
     shape = (64, 64, 3)
     with binding(pair[0]).BlockAccessor(unique_direction, int(np.prod(shape))) as writer:
-        with binding(pair[1]).BlockAccessor(unique_direction) as reader:
+        with opened_within(binding(pair[1]).BlockAccessor(unique_direction)) as reader:
             w = _HammerWriter(writer, 2000, shape)
             w.start()
             seen = 0
@@ -310,7 +309,7 @@ def test_block_bytes_equal_across_packages(monkeypatch, faults):
     files = {}
     with contextlib.ExitStack() as stack:
         writers = {pkg: stack.enter_context(binding(pkg).BlockAccessor(d, size)) for pkg, d in directions.items()}
-        readers = {pkg: stack.enter_context(binding(other).BlockAccessor(directions[pkg]))
+        readers = {pkg: stack.enter_context(opened_within(binding(other).BlockAccessor(directions[pkg])))
                    for pkg, other in (("port", "jax"), ("jax", "port"))}
         reads = {pkg: [] for pkg in PACKAGES}
         for i, frame in enumerate(frames):

@@ -23,7 +23,14 @@
   (idx exact, d2 rtol 1e-4, atol 1e-5: tests/test_torch_sift.py's bounds),
   and its train loss and gradients equal the port's one-process float32
   step (loss rtol 1e-5, gradients within 1e-4 of their norms).
+* ``launch``'s own bound: two ranks that stall outside any collective are
+  terminated once ``timeout_s`` has passed since they joined the group, and
+  the launch raises naming them.
 """
+
+import os
+import re
+import time
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +40,7 @@ import pytest
 import torch
 from torch import nn
 import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
+from mesh_ranks import stall
 
 from cuauv_vision_pipeline_tpu.models.yolo import train as jtrain
 from cuauv_vision_pipeline_tpu.models.yolo.model import create_model as jcreate
@@ -241,3 +249,16 @@ def test_dryrun_multichip_on_four_cpu_ranks():
         np.testing.assert_array_equal(r["merged"], want)
     # the CPU takes every kernel's plain version: nothing launched
     assert all(n == 0 for r in ranks for n in r["launches"].values())
+
+
+def test_launch_raises_on_stalled_ranks_and_leaves_none():
+    timeout_s = 15.0
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match=r"rank 0 \(pid \d+\), rank 1 \(pid \d+\) still running 15 s "
+                                           r"after every rank joined the group") as err:
+        tmesh.launch(stall, 2, "gloo", "cpu", args=(3600.0,), timeout_s=timeout_s)
+    elapsed = time.monotonic() - t0
+    assert timeout_s <= elapsed < tmesh.STARTUP_S + timeout_s
+    pids = [int(pid) for pid in re.findall(r"pid (\d+)", str(err.value))]
+    assert len(pids) == 2
+    assert not [pid for pid in pids if os.path.exists(f"/proc/{pid}")], "a rank process is left"

@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from test_torch_private_shm import opened_within
 from torch_cpu_pool import CHILD_ENV  # and torch's CPU pool at one thread
 
 from cuauv_vision_pipeline_tpu.core import shm as jshm
@@ -54,7 +55,7 @@ def _drive(source, module, delivered) -> None:
     time.sleep(0.3)
     quit_flag = threading.Event()
     try:
-        with module._module_manager:
+        with opened_within(module._module_manager):
             loop = threading.Thread(target=module._loop, args=(quit_flag, log.t))
             loop.start()
             deadline = time.monotonic() + 30

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 import torch_cpu_pool  # noqa: F401  (torch's CPU pool at one thread)
+from test_torch_private_shm import opened_within
 
 from cuauv_vision_pipeline_tpu.core import shm as jshm
 from cuauv_vision_pipeline_tpu.modules import red_buoy_stereo as jstereo
@@ -162,7 +163,7 @@ def test_stereo_module_over_the_bus(unique_direction, namespace):
     quit_flag = threading.Event()
     results = tshm.red_buoy_stereo_results
     with BlockAccessor(unique_direction, size) as writer:
-        with module._module_manager:
+        with opened_within(module._module_manager):
             loop = threading.Thread(target=module._loop, args=(quit_flag, log.t))
             loop.start()
             try:

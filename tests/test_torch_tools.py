@@ -22,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from test_torch_private_shm import opened_within
 from torch_cpu_pool import CHILD_ENV  # and torch's CPU pool at one thread
 
 from cuauv_vision_pipeline_tpu.core.bindings.frame_bus import BlockAccessor as JBlockAccessor
@@ -67,7 +68,7 @@ def test_image_ordering_cycle_reads_the_same_in_both_packages(capsys):
     seen = {"port": {}, "jax": {}}
     try:
         _wait_for_block(direction)
-        with BlockAccessor(direction) as ours, JBlockAccessor(direction) as theirs:
+        with opened_within(BlockAccessor(direction)) as ours, opened_within(JBlockAccessor(direction)) as theirs:
             deadline = time.monotonic() + 10
             while writer.is_alive() and time.monotonic() < deadline:
                 for key, acc, success in (("port", ours, ReadStatus.SUCCESS), ("jax", theirs, JReadStatus.SUCCESS)):

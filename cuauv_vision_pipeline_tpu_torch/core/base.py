@@ -1380,13 +1380,12 @@ class ModuleBase(ABC):
                         want_posts=want_posts,
                         lane_acqs=lane_acqs,
                     )
-                    with tracer.span("device_submit"):
-                        ready = dev_exec.submit(
-                            frames,
-                            meta=meta,
-                            tuners=self._module_manager.tuner_scalars(),
-                            want_posts=want_posts,
-                        )
+                    ready = dev_exec.submit(
+                        frames,
+                        meta=meta,
+                        tuners=self._module_manager.tuner_scalars(),
+                        want_posts=want_posts,
+                    )
                     for done in ready:
                         self._dispatch_device_result(done)
                 elif dev_exec.pending:

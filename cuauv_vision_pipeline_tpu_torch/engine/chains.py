@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.trace import tracer
 from ..ops import ccl
 from ..ops import color as C
 from ..ops import morphology as M
@@ -49,11 +50,17 @@ def red_buoy_fused(image, thresh_min, thresh_max, max_components: int = 8) -> Re
     calls of :func:`red_buoy_chain` on the CPU) -> CCL (the CUDA union-find
     kernel on the card) -> blob reductions -> argmax. Stats run on the
     UN-cleaned mask (reference modules/red_buoy.py:38); `cleaned` is for the
-    debug post."""
-    threshed = T.in_range(C.bgr_to_lab(image)[..., 1], thresh_min, thresh_max)
-    cleaned = fused_morph(threshed, "open_close")
-    stats = ccl.component_stats(ccl.label_fast(threshed), max_components)
-    return threshed, cleaned, ccl.best_component(stats)
+    debug post. Each stage runs in a span (``chain.lab_threshold``,
+    ``chain.morph``, ``chain.ccl``, ``chain.stats``) while the tracer is on."""
+    with tracer.span("chain.lab_threshold"):
+        threshed = T.in_range(C.bgr_to_lab(image)[..., 1], thresh_min, thresh_max)
+    with tracer.span("chain.morph"):
+        cleaned = fused_morph(threshed, "open_close")
+    with tracer.span("chain.ccl"):
+        labels = ccl.label_fast(threshed)
+    with tracer.span("chain.stats"):
+        best = ccl.best_component(ccl.component_stats(labels, max_components))
+    return threshed, cleaned, best
 
 
 class RedBuoyPipeline:

@@ -15,6 +15,13 @@ frame N while the host reads frame N+1 off the bus.
 * **async fetch** (``StreamExecutor(async_fetch=True)``): a worker thread
   waits on each dispatch's CUDA event and then copies the result, so the
   next frame's upload and launches overlap the previous readback.
+* **spans** (``core/trace.py``, recorded while the tracer is enabled), each
+  with the ``dispatch`` id ``submit`` gives: ``executor.submit`` (args
+  ``frames``, ``inflight``), ``executor.h2d`` per camera array (``bytes``),
+  ``executor.launch`` (the chain call), ``executor.pack``,
+  ``executor.backpressure`` (``submit`` held for a free slot),
+  ``executor.event_wait`` and ``executor.d2h`` (``bytes``) on the thread that
+  fetches: the worker with async fetch, else the caller.
 
 There is no compile step: ``DevicePipeline.warmup`` just runs the chain once.
 """
@@ -31,6 +38,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.trace import tracer
 from ..utils.tree import TreeDef, tree_flatten, tree_map, tree_unflatten
 
 _ALIGN = 8  # every leaf starts 8-byte aligned in the packed vector
@@ -97,6 +105,13 @@ def _stack_lanes(lanes: List[Any]) -> Any:
     return tree_unflatten(treedef, stacked)
 
 
+def _pack(out: Any, stack: bool) -> Tuple[torch.Tensor, PackSpec]:
+    """``pack_result`` of a result tree, or of per-lane trees stacked first
+    (``stack``), in an ``executor.pack`` span."""
+    with tracer.span("executor.pack"):
+        return pack_result(_stack_lanes(out) if stack else out)
+
+
 def build_packed_fn(
     dev_bound: Callable, dev_batch: int, dev_batch_mode: str
 ) -> Callable:
@@ -112,17 +127,14 @@ def build_packed_fn(
 
         def packed_fn(batched, *, tuners, want_posts):
             if dev_batch_mode == "map":
-                out = _stack_lanes(
-                    [dev_bound(f, tuners=tuners, want_posts=want_posts) for f in batched]
-                )
-            else:
-                out = dev_bound(batched, tuners=tuners, want_posts=want_posts)
-            return pack_result(out)
+                lanes = [dev_bound(f, tuners=tuners, want_posts=want_posts) for f in batched]
+                return _pack(lanes, stack=True)
+            return _pack(dev_bound(batched, tuners=tuners, want_posts=want_posts), stack=False)
 
     else:
 
         def packed_fn(*frames, tuners, want_posts):
-            return pack_result(dev_bound(*frames, tuners=tuners, want_posts=want_posts))
+            return _pack(dev_bound(*frames, tuners=tuners, want_posts=want_posts), stack=False)
 
     return packed_fn
 
@@ -140,6 +152,17 @@ def _materialize(result: Any) -> Any:
     return tree_map(_to_host, result)
 
 
+def _host_bytes(result: Any) -> int:
+    return sum(int(x.nbytes) for x in tree_flatten(result)[0] if isinstance(x, np.ndarray))
+
+
+def dispatch_frames(args: Tuple[Any, ...]) -> int:
+    """Frames in one dispatch's camera arrays: a 4-D array is a batch of
+    frames along its first axis (``[lanes, H, W, C]``), anything else one
+    frame (a bus frame is ``[H, W, C]``)."""
+    return sum(int(a.shape[0]) if getattr(a, "ndim", 0) == 4 else 1 for a in args)
+
+
 class DevicePipeline:
     """A frame chain bound to one device.
 
@@ -153,7 +176,8 @@ class DevicePipeline:
 
     def to_device(self, a: Any) -> Any:
         if isinstance(a, np.ndarray):
-            return torch.from_numpy(a).to(self.device)
+            with tracer.span("executor.h2d", bytes=a.nbytes):
+                return torch.from_numpy(a).to(self.device)
         return a
 
     def warmup(self, *args: Any, **kwargs: Any) -> None:
@@ -164,7 +188,9 @@ class DevicePipeline:
             torch.cuda.synchronize(self.device)
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
-        return self._fn(*tuple(self.to_device(a) for a in args), **kwargs)
+        on_device = tuple(self.to_device(a) for a in args)
+        with tracer.span("executor.launch"):
+            return self._fn(*on_device, **kwargs)
 
     def run_sync(self, *args: Any, **kwargs: Any) -> Any:
         """Run and materialize the results as numpy (blocking)."""
@@ -194,7 +220,8 @@ class StreamExecutor:
         self.pipeline = pipeline
         self.depth = depth
         self.async_fetch = async_fetch
-        self._queue: "deque[Tuple[Any, Any, Any]]" = deque()  # sync mode
+        self._dispatches = 0  # the id of the last dispatch submitted
+        self._queue: "deque[Tuple[Any, Any, Any, int]]" = deque()  # sync mode
         if async_fetch:
             self._inflight: "queue.Queue" = queue.Queue()
             self._done: "queue.Queue" = queue.Queue()
@@ -203,19 +230,24 @@ class StreamExecutor:
             self._worker.start()
 
     @staticmethod
-    def _wait_and_fetch(fut: Any, event: Optional[torch.cuda.Event]) -> Any:
-        if event is not None:
-            event.synchronize()
-        return _materialize(fut)
+    def _wait_and_fetch(fut: Any, event: Optional[torch.cuda.Event], dispatch: int) -> Any:
+        with tracer.span("executor.event_wait", dispatch=dispatch):
+            if event is not None:
+                event.synchronize()
+        with tracer.span("executor.d2h", dispatch=dispatch) as span:
+            out = _materialize(fut)
+            if span:
+                span.set(bytes=_host_bytes(out))
+        return out
 
     def _fetch_loop(self) -> None:
         while True:
             item = self._inflight.get()
             if item is None:
                 return
-            fut, event, meta = item
+            fut, event, meta, dispatch = item
             try:
-                self._done.put((self._wait_and_fetch(fut, event), meta))
+                self._done.put((self._wait_and_fetch(fut, event, dispatch), meta))
             except Exception as e:  # deliver failures in order too
                 self._done.put((e, meta))
 
@@ -228,23 +260,31 @@ class StreamExecutor:
     def submit(
         self, args: Tuple[Any, ...], meta: Any = None, **kwargs: Any
     ) -> List[Tuple[Any, Any]]:
-        fut = self.pipeline(*args, **kwargs)
-        event = None
-        if self.pipeline.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.pipeline.device))
-        if not self.async_fetch:
-            self._queue.append((fut, event, meta))
-            if len(self._queue) <= self.depth:
-                return []
-            out = self._pop_one()
-            return [out] if out is not None else []
-        self._inflight.put((fut, event, meta))
-        self._n_inflight += 1
-        ready = self.poll()
-        while self._n_inflight - len(ready) > self.depth:  # backpressure
-            ready.append(self._pop_done_blocking())
-        return ready
+        self._dispatches += 1
+        dispatch = self._dispatches
+        with tracer.span("executor.submit", dispatch=dispatch) as span:
+            if span:
+                span.set(frames=dispatch_frames(args), inflight=self.pending)
+            fut = self.pipeline(*args, **kwargs)
+            event = None
+            if self.pipeline.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.pipeline.device))
+            if not self.async_fetch:
+                self._queue.append((fut, event, meta, dispatch))
+                if len(self._queue) <= self.depth:
+                    return []
+                with tracer.span("executor.backpressure"):
+                    out = self._pop_one()
+                return [out] if out is not None else []
+            self._inflight.put((fut, event, meta, dispatch))
+            self._n_inflight += 1
+            ready = self.poll()
+            if self._n_inflight - len(ready) > self.depth:
+                with tracer.span("executor.backpressure"):
+                    while self._n_inflight - len(ready) > self.depth:
+                        ready.append(self._pop_done_blocking())
+            return ready
 
     def poll(self) -> List[Tuple[Any, Any]]:
         """Already-materialized results (async mode; [] in sync mode)."""
@@ -280,10 +320,10 @@ class StreamExecutor:
     ) -> Optional[Tuple[Any, Any]]:
         if not self._queue:
             return None
-        fut, event, meta = self._queue[0]
+        fut, event, meta, dispatch = self._queue[0]
         if timeout_s is None:
             self._queue.popleft()
-            return self._wait_and_fetch(fut, event), meta
+            return self._wait_and_fetch(fut, event, dispatch), meta
         # bounded drain (shutdown): wait on a helper thread so a wedged
         # device can't hang the caller. On timeout the item stays queued
         # (pending accounting) for the caller to abandon; the daemon thread
@@ -292,7 +332,7 @@ class StreamExecutor:
 
         def _work() -> None:
             try:
-                box["v"] = self._wait_and_fetch(fut, event)
+                box["v"] = self._wait_and_fetch(fut, event, dispatch)
             except Exception as e:  # pragma: no cover - device-dependent
                 box["e"] = e
 

@@ -2746,9 +2746,14 @@ def phase_module(run_id: str):
             elif name in modules:
                 p.wait(timeout=60)
                 assert p.returncode == 0, f"{name} exited with {p.returncode}"
-                found = re.findall(r"kernel launches: (\{.*\})", (logs / f"{name}.log").read_text())
+                text = (logs / f"{name}.log").read_text()
+                found = re.findall(r"kernel launches: (\{.*\})", text)
                 assert found, f"{name} logged no kernel launch counts"
                 launches[name] = json.loads(found[-1])
+                # a module with a @device_fn logs how its dispatches ran
+                graphs = re.findall(r"graph calls: (\{.*\})", text)
+                if graphs:
+                    emit("graph_calls", module=name, counts=json.loads(graphs[-1]))
         return launches
 
     def samples(counter, read, seconds=4.0, least=5, what="results"):

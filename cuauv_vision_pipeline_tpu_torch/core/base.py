@@ -1192,11 +1192,9 @@ class ModuleBase(ABC):
             # posts ride in the SAME single packed fetch as the result (one
             # device->host copy per frame, u8 images at native width); each
             # packed result carries its own unpack spec
+            dev_packed = build_packed_fn(dev_bound, dev_batch, dev_batch_mode)
             dev_exec = StreamExecutor(
-                DevicePipeline(
-                    build_packed_fn(dev_bound, dev_batch, dev_batch_mode),
-                    self.device,
-                ),
+                DevicePipeline(dev_packed, self.device),
                 depth=dev_depth,
                 async_fetch=dev_async,
             )
@@ -1416,6 +1414,8 @@ class ModuleBase(ABC):
                 self._abandoned_inflight = True
             dev_exec.close()
             self._drain_post_queue()
+            # how each dispatch ran: eagerly, or as a CUDA graph
+            logger(f"graph calls: {json.dumps(dev_packed.graph_counts)}", True)
 
     def _plane_aliases_for(self, message: VideoMessage) -> Tuple[str, ...]:
         """Alias resolution for multi-plane frames: bus plane names win, then

@@ -215,6 +215,16 @@ class Tracer:
             return _NULL_SPAN
         return _LiveSpan(self, name, dispatch, args)
 
+    def annotate(self, **args: Any) -> None:
+        """Add counts to the args of the innermost span open on this
+        thread, from code that did not open it (nothing while tracing is
+        off or no span is open)."""
+        if not self._enabled:
+            return
+        stack = self._thread().stack
+        if stack:
+            stack[-1].set(**args)
+
     def instant(self, name: str, **args: Any) -> None:
         """Mark a point event (frame arrival, detection, error)."""
         if not self._enabled:

@@ -15,10 +15,14 @@ frame N while the host reads frame N+1 off the bus.
 * **async fetch** (``StreamExecutor(async_fetch=True)``): a worker thread
   waits on each dispatch's CUDA event and then copies the result, so the
   next frame's upload and launches overlap the previous readback.
+* **CUDA graphs** (``build_packed_fn`` returns a :class:`PackedFn`): on a
+  card the packed call of each key (shapes, tuners, ``want_posts``) is
+  captured on its ``CAPTURE_AT``-th call and replayed after, so a dispatch
+  costs one graph launch where the eager chain makes ~150 launches a frame.
 * **spans** (``core/trace.py``, recorded while the tracer is enabled), each
   with the ``dispatch`` id ``submit`` gives: ``executor.submit`` (args
   ``frames``, ``inflight``), ``executor.h2d`` per camera array (``bytes``),
-  ``executor.launch`` (the chain call), ``executor.pack``,
+  ``executor.launch`` (the chain call; ``graph``: how it ran), ``executor.pack``,
   ``executor.backpressure`` (``submit`` held for a free slot),
   ``executor.event_wait`` and ``executor.d2h`` (``bytes``) on the thread that
   fetches: the worker with async fetch, else the caller.
@@ -31,7 +35,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core.trace import tracer
+from ..ops.cuda import add_launch_counts, launch_counts
 from ..utils.tree import TreeDef, tree_flatten, tree_map, tree_unflatten
 
 _ALIGN = 8  # every leaf starts 8-byte aligned in the packed vector
@@ -114,10 +119,11 @@ def _pack(out: Any, stack: bool) -> Tuple[torch.Tensor, PackSpec]:
 
 def build_packed_fn(
     dev_bound: Callable, dev_batch: int, dev_batch_mode: str
-) -> Callable:
+) -> "PackedFn":
     """The callable ModuleBase dispatches for a @device_fn: runs the
     module's chain and packs ``(result, posts)`` for one fetch, returning
-    ``(packed, spec)``.
+    ``(packed, spec)``; on a CUDA card it replays the call as a CUDA graph
+    (:class:`PackedFn`).
 
     With ``dev_batch > 1`` the first argument is a ``[lanes, ...]`` batch of
     fresh frames: ``"map"`` runs the per-frame chain lane by lane and
@@ -136,7 +142,211 @@ def build_packed_fn(
         def packed_fn(*frames, tuners, want_posts):
             return _pack(dev_bound(*frames, tuners=tuners, want_posts=want_posts), stack=False)
 
-    return packed_fn
+    return PackedFn(packed_fn)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of a packed call
+# ---------------------------------------------------------------------------
+
+# how a packed call ran: the ``graph`` arg of its ``executor.launch`` span and
+# the keys of ``PackedFn.graph_counts``
+GRAPH_MODES = ("eager", "capture", "replay", "fallback")
+MAX_KEYS = 4  # keys (seen, captured, or failed) kept per packed function
+CAPTURE_AT = 4  # the call of a key that captures it; the calls before run eagerly
+
+
+def _frozen(value: Any) -> Any:
+    """A tuner value by value: numpy scalars and 0-d arrays as Python
+    numbers. Raises TypeError for anything else that is not a Python
+    scalar, a string or a tuple of them (a tensor hashes by identity)."""
+    if isinstance(value, (np.generic, np.ndarray)):
+        if np.ndim(value) != 0:
+            raise TypeError(f"a tuner array of shape {np.shape(value)} has no key")
+        value = value.item()
+    if isinstance(value, tuple):
+        return tuple(_frozen(v) for v in value)
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return type(value), value
+    raise TypeError(f"a tuner value of type {type(value).__name__} has no key")
+
+
+def graph_key(args: Tuple[Any, ...], tuners: Any, want_posts: Any) -> Optional[tuple]:
+    """What a packed call's graph depends on besides its input values:
+    each argument's shape, dtype and device, the tuner values (frozen),
+    and ``want_posts``. None when an argument is not a tensor or a tuner
+    has no hashable value: that call runs eagerly."""
+    if not all(isinstance(a, torch.Tensor) for a in args):
+        return None
+    try:
+        frozen = tuple(sorted((k, _frozen(v)) for k, v in tuners.items()))
+    except (TypeError, AttributeError):
+        return None
+    return tuple((tuple(a.shape), a.dtype, a.device) for a in args), frozen, bool(want_posts)
+
+
+def _on_one_card(args: Tuple[Any, ...]) -> bool:
+    return bool(args) and all(a.is_cuda for a in args) and len({a.device for a in args}) == 1
+
+
+class _Graph:
+    """One packed call captured as a CUDA graph: the static inputs it
+    reads, and the packed vector and spec it writes on each replay.
+
+    The capture runs on a side stream in ``thread_local`` error mode, so the
+    async fetch thread may wait on an event or copy a result meanwhile. A
+    call that waits for the host (``.item()``, a copy from host memory)
+    cannot be captured: the constructor then ends the capture, releases its
+    memory pool and raises RuntimeError. ``torch.cuda.graph``'s context is
+    not used: it synchronises the card and empties the allocator's cache at
+    every capture."""
+
+    def __init__(self, run: Callable, args: Tuple[torch.Tensor, ...]):
+        dev = args[0].device
+        self.inputs = tuple(a.clone() for a in args)
+        self.graph = torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                self.packed, self.spec = run(*self.inputs)
+            except BaseException:
+                _abandon_capture(self.graph, dev, pool)
+                raise
+            try:
+                self.graph.capture_end()
+            except RuntimeError:
+                _release_pool(dev, pool)
+                raise
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def matches(self, out: Tuple[torch.Tensor, PackSpec]) -> bool:
+        """Replay once on the captured inputs and compare with the eager
+        ``out`` of the same call (waits for the card)."""
+        packed, spec = out
+        self.graph.replay()
+        return spec == self.spec and torch.equal(self.packed, packed)
+
+    def replay(self, args: Tuple[torch.Tensor, ...]) -> None:
+        """Copy ``args`` into the static inputs and replay: ``packed`` then
+        holds this call's result until the next replay."""
+        for static, a in zip(self.inputs, args):
+            static.copy_(a)
+        self.graph.replay()
+
+    def close(self) -> None:
+        """Drop the graph once the card has finished its last replay, and
+        give its memory pool back to the card: a released pool stays
+        reserved until the allocator's cache is emptied, and a capture
+        cannot empty it, so without this dropped graphs fill the card."""
+        torch.cuda.synchronize(self.inputs[0].device)
+        self.graph.reset()
+        torch.cuda.empty_cache()
+
+
+def _abandon_capture(graph: "torch.cuda.CUDAGraph", dev: torch.device, pool: Any) -> None:
+    """End a capture whose call raised. One that was not invalidated ends
+    as a partial graph, which frees its pool when dropped; an invalidated
+    one raises in ``capture_end``, and its pool is released here."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        _release_pool(dev, pool)
+
+
+def _release_pool(dev: torch.device, pool: Any) -> None:
+    """Stop the allocator routing into the pool of a capture that failed
+    to end, and release the pool: a graph whose capture never ended does
+    not release it itself."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    for step in (torch._C._cuda_endAllocateToPool, torch._C._cuda_releasePool):
+        try:
+            step(index, pool)
+        except RuntimeError:
+            pass  # this torch's capture_end did it before it raised
+
+
+class PackedFn:
+    """A packed call (``run(*args, tuners=..., want_posts=...)`` ->
+    ``(packed, spec)``) that replays as a CUDA graph on a card.
+
+    Per :func:`graph_key`: the first ``CAPTURE_AT - 1`` calls of a key run
+    eagerly (kernel builds, cached tables, library workspaces: every
+    first-use job); the next captures the call, replays it once and runs it
+    eagerly on the same inputs, keeping the graph only if the two packed
+    vectors are byte-equal; later calls copy their arguments into the
+    graph's inputs, replay, and return a copy of the graph's packed vector
+    (the next replay overwrites it while the fetch thread may still be
+    reading this one). A capture that raises, or a replay that differs,
+    marks the key failed: its calls run eagerly while it is kept. At most
+    ``MAX_KEYS`` keys are kept, least recently used out (a dropped graph's
+    memory goes back to the card); a key dropped and seen again starts
+    over. CPU tensors, and keys that do not hash, always run eagerly.
+
+    Each call tags the ``executor.launch`` span it runs in with ``graph``:
+    one of ``GRAPH_MODES`` (``fallback``: eager on a failed key), and
+    counts it in ``graph_counts``. A replay runs no Python of the chain, so
+    the chain's spans do not fire; its ``executor.pack`` span holds the
+    copy of the packed vector, and the hand kernels' ``launches`` counters
+    gain the launches the capture counted."""
+
+    def __init__(self, run: Callable):
+        self._run = run
+        # per key: the calls it ran eagerly (an int), its _Graph, or None once failed
+        self._keys: "OrderedDict[tuple, Any]" = OrderedDict()
+        self.graph_counts = dict.fromkeys(GRAPH_MODES, 0)
+
+    def __call__(self, *args: Any, tuners: Any, want_posts: Any) -> Tuple[torch.Tensor, PackSpec]:
+        mode, out = self._call(args, lambda *a: self._run(*a, tuners=tuners, want_posts=want_posts),
+                               graph_key(args, tuners, want_posts))
+        self.graph_counts[mode] += 1
+        tracer.annotate(graph=mode)
+        return out
+
+    def _call(self, args: Tuple[Any, ...], run: Callable, key: Optional[tuple]) -> Tuple[str, Any]:
+        if key is None or not _on_one_card(args):
+            return "eager", run(*args)
+        entry = self._keys.get(key, 0)
+        if entry is None:
+            self._keys.move_to_end(key)
+            return "fallback", run(*args)
+        if not isinstance(entry, int):
+            self._keys.move_to_end(key)
+            entry.replay(args)
+            add_launch_counts(entry.launches)
+            with tracer.span("executor.pack"):
+                return "replay", (entry.packed.clone(), entry.spec)
+        if entry + 1 < CAPTURE_AT:
+            self._keep(key, entry + 1)
+            return "eager", run(*args)
+        before = launch_counts()
+        try:
+            graph = _Graph(run, args)
+        except RuntimeError:
+            # the wrappers counted launches the failed capture never made
+            add_launch_counts({name: before[name] - n for name, n in launch_counts().items()})
+            self._keep(key, None)
+            return "fallback", run(*args)
+        # what a replay launches; the capture's own count stands for the
+        # check's replay below
+        graph.launches = {name: n - before[name] for name, n in launch_counts().items()}
+        out = run(*args)
+        if not graph.matches(out):
+            graph.close()
+            self._keep(key, None)
+            return "fallback", out
+        self._keep(key, graph)
+        return "capture", out
+
+    def _keep(self, key: tuple, entry: Any) -> None:
+        self._keys[key] = entry
+        self._keys.move_to_end(key)
+        while len(self._keys) > MAX_KEYS:
+            dropped = self._keys.popitem(last=False)[1]
+            if isinstance(dropped, _Graph):
+                dropped.close()
 
 
 # ---------------------------------------------------------------------------

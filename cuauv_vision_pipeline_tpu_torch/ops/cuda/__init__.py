@@ -27,6 +27,14 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (keyed as :func:`launch_counts` gives them) to the
+    wrappers' own: a CUDA graph's replay launches its kernels without
+    calling their wrappers."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += n
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0

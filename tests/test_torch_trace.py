@@ -239,3 +239,18 @@ def test_the_red_buoy_chain_records_its_stages_once_per_lane(on):
     stages = [e.name for e in events if e.name.startswith("chain.")]
     assert stages == ["chain.lab_threshold", "chain.morph", "chain.ccl", "chain.stats"] * 2
     assert all(e.parent == launch.id and e.dispatch == 1 for e in events if e.name.startswith("chain."))
+
+
+def test_annotate_adds_args_to_the_innermost_open_span():
+    tr = Tracer()
+    tr.annotate(graph="eager")  # off: nothing
+    tr.enable()
+    tr.annotate(graph="eager")  # no span open: nothing
+    with tr.span("outer"):
+        with tr.span("inner", a=1):
+            tr.annotate(graph="replay")
+        tr.annotate(b=2)
+    events = {e.name: e for e in tr.events()}
+    assert sorted(events) == ["inner", "outer"]
+    assert events["inner"].args == {"a": 1, "graph": "replay"}
+    assert events["outer"].args == {"b": 2}

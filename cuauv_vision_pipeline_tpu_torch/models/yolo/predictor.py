@@ -31,8 +31,9 @@ import numpy as np
 import torch
 
 from ...core.device import full_f32, resolve_device
+from ...core.trace import tracer
 from . import quant
-from .decode import decode, summarize
+from .decode import candidates, select, summarize
 from .model import create_model, letterbox_params, preprocess_fused
 from .tracker import ByteTracker
 from .weights import load_checkpoint
@@ -133,14 +134,14 @@ class YoloModel:
 
     def _letterbox(self, images_u8: torch.Tensor) -> torch.Tensor:
         """[K, H, W, 3] u8 BGR on the device -> [K, S, S, 3] float32."""
-        with torch.inference_mode(), full_f32():
+        with tracer.span("chain.letterbox"), torch.inference_mode(), full_f32():
             return preprocess_fused(images_u8, self.image_size)
 
     def _heads(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
         """The conv stack on letterboxed [K, S, S, 3] float32 -> the raw
         per-scale head maps (NHWC, float32; segment's ``proto`` and
         classify's ``logits`` are single tensors)."""
-        with torch.inference_mode():
+        with tracer.span("chain.yolo_heads"), torch.inference_mode():
             # NHWC memory seen as NCHW: a channels_last tensor, no copy
             x = x.to(self.dtype).permute(0, 3, 1, 2)
             with contextlib.nullcontext() if self.half_precision else full_f32():
@@ -149,12 +150,16 @@ class YoloModel:
                     for k, v in outputs.items()}
 
     def _decode(self, outputs: Dict[str, List[torch.Tensor]]) -> Dict[str, torch.Tensor]:
+        """``decode``, its two halves each in a span: ``chain.candidates``
+        (every anchor's box, score and class) and ``chain.select`` (the
+        pool's sort, the NMS and the gathers)."""
         with torch.inference_mode():
             if self.task == "classify":
                 return {"probs": torch.softmax(outputs["logits"], -1)}
-            return decode(outputs, self.image_size, reg_max=self.model.reg_max,
-                          conf_thresh=self.conf_thresh, max_det=self.max_det,
-                          nms_pool=self.nms_pool)
+            with tracer.span("chain.candidates"):
+                found = candidates(outputs, self.model.reg_max, self.conf_thresh)
+            with tracer.span("chain.select"):
+                return select(*found, self.image_size, max_det=self.max_det, nms_pool=self.nms_pool)
 
     def head_outputs(self, images_u8: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
         """[K, H, W, 3] u8 BGR on the device -> the raw per-scale head maps

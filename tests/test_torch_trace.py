@@ -254,3 +254,45 @@ def test_annotate_adds_args_to_the_innermost_open_span():
     assert sorted(events) == ["inner", "outer"]
     assert events["inner"].args == {"a": 1, "graph": "replay"}
     assert events["outer"].args == {"b": 2}
+
+
+def _yolo_dispatch():
+    """One eager ``Yolo.detect_chain`` dispatch (a bare module instance
+    serving a small random-init OBB model) through the executor."""
+    from cuauv_vision_pipeline_tpu_torch.models.yolo.predictor import YoloModel
+    from cuauv_vision_pipeline_tpu_torch.modules.yolo import Yolo
+
+    module = Yolo.__new__(Yolo)
+    module.model = YoloModel(None, task="obb", size="p", image_size=64, device="cpu")
+    ex = StreamExecutor(DevicePipeline(build_packed_fn(module.detect_chain, 1, "vmap"), CPU), depth=1)
+    try:
+        ex.submit((np.full((48, 64, 3), 90, np.uint8),), tuners={}, want_posts=False)
+        (result,) = ex.flush()
+    finally:
+        ex.close()
+    return result
+
+
+YOLO_STAGES = ["chain.letterbox", "chain.yolo_heads", "chain.candidates", "chain.select"]
+
+
+def test_the_yolo_chain_records_its_stages_under_the_launch(on):
+    _yolo_dispatch()
+    events = on.events()
+    (launch,) = [e for e in events if e.name == "executor.launch"]
+    stages = [e for e in events if e.name.startswith("chain.")]
+    assert [e.name for e in stages] == YOLO_STAGES
+    assert all(e.parent == launch.id and e.dispatch == launch.dispatch == 1 for e in stages)
+    assert all(launch.start_ns <= e.start_ns <= e.end_ns <= launch.end_ns for e in stages)
+
+
+def test_the_yolo_chain_records_nothing_with_the_tracer_off():
+    was = trace.tracer.enabled
+    trace.tracer.disable()
+    trace.tracer.clear()
+    try:
+        _yolo_dispatch()
+        assert trace.tracer.events() == []
+    finally:
+        if was:
+            trace.tracer.enable()

@@ -2754,6 +2754,9 @@ def phase_module(run_id: str):
                 graphs = re.findall(r"graph calls: (\{.*\})", text)
                 if graphs:
                     emit("graph_calls", module=name, counts=json.loads(graphs[-1]))
+                copies = re.findall(r"h2d copies: (\{.*\})", text)
+                if copies:
+                    emit("h2d_copies", module=name, counts=json.loads(copies[-1]))
         return launches
 
     def samples(counter, read, seconds=4.0, least=5, what="results"):

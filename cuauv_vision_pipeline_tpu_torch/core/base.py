@@ -1416,6 +1416,8 @@ class ModuleBase(ABC):
             self._drain_post_queue()
             # how each dispatch ran: eagerly, or as a CUDA graph
             logger(f"graph calls: {json.dumps(dev_packed.graph_counts)}", True)
+            # how each camera array reached the card: staged or pageable
+            logger(f"h2d copies: {json.dumps(dev_exec.pipeline.h2d_counts)}", True)
 
     def _plane_aliases_for(self, message: VideoMessage) -> Tuple[str, ...]:
         """Alias resolution for multi-plane frames: bus plane names win, then

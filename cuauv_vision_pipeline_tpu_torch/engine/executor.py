@@ -19,9 +19,14 @@ frame N while the host reads frame N+1 off the bus.
   card the packed call of each key (shapes, tuners, ``want_posts``) is
   captured on its ``CAPTURE_AT``-th call and replayed after, so a dispatch
   costs one graph launch where the eager chain makes ~150 launches a frame.
+* **staged uploads** (:class:`DevicePipeline`): on a card each camera array
+  is copied into a page-locked slot and sent by an async DMA on a copy
+  stream that the compute stream waits on, so the upload of frame N+1
+  overlaps frame N's chain.
 * **spans** (``core/trace.py``, recorded while the tracer is enabled), each
   with the ``dispatch`` id ``submit`` gives: ``executor.submit`` (args
-  ``frames``, ``inflight``), ``executor.h2d`` per camera array (``bytes``),
+  ``frames``, ``inflight``), ``executor.h2d`` per camera array (``bytes``;
+  on a card ``staged``: through a pinned slot, or pageable),
   ``executor.launch`` (the chain call; ``graph``: how it ran), ``executor.pack``,
   ``executor.backpressure`` (``submit`` held for a free slot),
   ``executor.event_wait`` and ``executor.d2h`` (``bytes``) on the thread that
@@ -373,22 +378,99 @@ def dispatch_frames(args: Tuple[Any, ...]) -> int:
     return sum(int(a.shape[0]) if getattr(a, "ndim", 0) == 4 else 1 for a in args)
 
 
+SLOTS = 2  # page-locked staging buffers per argument position
+
+
+class _Slot:
+    """A page-locked staging buffer, grown to the largest array it has
+    held, and the event of the last DMA that read it."""
+
+    __slots__ = ("buf", "event")
+
+    def __init__(self) -> None:
+        self.buf: Optional[torch.Tensor] = None
+        self.event = torch.cuda.Event()
+
+
 class DevicePipeline:
     """A frame chain bound to one device.
 
     ``fn`` is any callable over tensors. Call sites pass numpy arrays or
     tensors; numpy arrays are copied to ``device`` first. Results are
-    device tensors (launched, not waited for)."""
+    device tensors (launched, not waited for).
+
+    On a CUDA device each numpy array is staged: copied on the host into
+    the next of its argument position's ``SLOTS`` page-locked buffers, then
+    sent by an async DMA on the pipeline's copy stream, which the current
+    (compute) stream waits on. So the copy neither holds the host for the
+    DMA nor waits behind the work already queued on the compute stream.
+    ``to_device`` returns once the host copy is done: the caller may reuse
+    its array at once. A position whose pinned allocation fails copies
+    pageable from then on; ``h2d_counts`` counts both kinds. On the CPU the
+    tensor shares the array's memory."""
 
     def __init__(self, fn: Callable, device: torch.device):
         self._fn = fn
         self.device = torch.device(device)
+        self.h2d_counts = {"staged": 0, "pageable": 0}
+        # per argument position: its slots in the order they are taken, or
+        # None once a pinned allocation failed there
+        self._slots: "dict[int, Optional[deque[_Slot]]]" = {}
+        self.copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
-    def to_device(self, a: Any) -> Any:
-        if isinstance(a, np.ndarray):
-            with tracer.span("executor.h2d", bytes=a.nbytes):
-                return torch.from_numpy(a).to(self.device)
-        return a
+    def to_device(self, a: Any, position: int = 0) -> Any:
+        """``a`` on the device if it is a numpy array (``position``: its
+        index among the call's arguments), else ``a`` itself."""
+        if not isinstance(a, np.ndarray):
+            return a
+        with tracer.span("executor.h2d", bytes=a.nbytes) as span:
+            src = torch.from_numpy(a)
+            if self.device.type != "cuda":
+                return src.to(self.device)
+            slot = self._slot(position, a.nbytes)
+            span.set(staged=slot is not None)
+            if slot is None:
+                self.h2d_counts["pageable"] += 1
+                return src.to(self.device)
+            self.h2d_counts["staged"] += 1
+            return self._stage(src, slot)
+
+    def _slot(self, position: int, nbytes: int) -> Optional[_Slot]:
+        """The next slot of ``position``, free (its last DMA has read it)
+        and holding at least ``nbytes``; None if the position copies
+        pageable."""
+        if position not in self._slots:
+            self._slots[position] = deque(_Slot() for _ in range(SLOTS))
+        slots = self._slots[position]
+        if slots is None:
+            return None
+        slot = slots[0]
+        slots.rotate(-1)
+        slot.event.synchronize()
+        if slot.buf is None or slot.buf.numel() < nbytes:
+            slot.buf = None
+            try:
+                slot.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            except RuntimeError:
+                self._slots[position] = None
+                return None
+        return slot
+
+    def _stage(self, src: torch.Tensor, slot: _Slot) -> torch.Tensor:
+        staged = slot.buf[: src.numel() * src.element_size()].view(src.dtype).view(src.shape)
+        staged.copy_(src)
+        compute = torch.cuda.current_stream(self.device)
+        # allocated on the copy stream, so the block is not one the compute
+        # stream has freed but may still be reading
+        with torch.cuda.stream(self.copy_stream):
+            dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            dst.copy_(staged, non_blocking=True)
+            slot.event.record(self.copy_stream)
+        compute.wait_event(slot.event)
+        # the allocator must not hand the block back to the copy stream
+        # while the compute stream still reads it
+        dst.record_stream(compute)
+        return dst
 
     def warmup(self, *args: Any, **kwargs: Any) -> None:
         """Run the chain once and wait for it (there is nothing to compile;
@@ -398,7 +480,7 @@ class DevicePipeline:
             torch.cuda.synchronize(self.device)
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
-        on_device = tuple(self.to_device(a) for a in args)
+        on_device = tuple(self.to_device(a, i) for i, a in enumerate(args))
         with tracer.span("executor.launch"):
             return self._fn(*on_device, **kwargs)
 

@@ -31,8 +31,8 @@ Differences from the reference:
 * an optional ``device_fn`` fast path: a module may register a torch chain
   over its frame bundle, and ModuleBase runs it on the module's device
   (``--device N``, or ``--device cpu``; ``$CUAUV_TPU_DEVICE`` when the flag
-  is absent; CUDA by default) through the engine
-  with staging reuse (see engine/executor.py).
+  is absent; CUDA by default) through the module's device lane
+  (engine/lane.py) with staging reuse.
 
 Port of ``cuauv_vision_pipeline_tpu.core.base``; the bus, tuner and post
 block names are unchanged, so the JAX package's ModuleReader reads a port
@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import glob
 import json
 import os
@@ -68,14 +67,8 @@ from typing import (
 import numpy as np
 import torch
 
-from ..engine.executor import (
-    DevicePipeline,
-    StreamExecutor,
-    build_packed_fn,
-    unpack_result,
-)
+from ..engine.lane import DeviceLane, DeviceResultMeta
 from ..ops.cuda import launch_counts
-from ..utils.tree import tree_map
 from .bindings.frame_bus import (
     BLOCK_STUB,
     BlockAccessor,
@@ -230,13 +223,14 @@ def device_fn(
     dropped instead of batched, bounding result latency at one dispatch
     interval. ``None`` (default) batches the full backlog.
 
-    ModuleBase runs the chain through a depth-``depth`` StreamExecutor:
-    frame N's H2D copy + compute overlap the bus read of frame N+1, and the
-    materialized result of frame N arrives at ``on_device_result(result,
-    posts, meta)`` one submit later. ``depth > 1`` keeps several dispatches
-    in flight and ``async_fetch=True`` moves result readback to a worker
-    thread that waits on each dispatch's CUDA event. Results are packed into
-    one device vector so a whole result tree costs ONE device->host copy
+    The module's device lane (engine/lane.py) runs the chain through a
+    depth-``depth`` StreamExecutor: frame N's H2D copy + compute overlap
+    the bus read of frame N+1, and the materialized result of frame N
+    arrives at ``on_device_result(result, posts, meta)`` one submit later.
+    ``depth > 1`` keeps several dispatches in flight and
+    ``async_fetch=True`` moves result readback to a worker thread that
+    waits on each dispatch's CUDA event. Results are packed into one device
+    vector so a whole result tree costs ONE device->host copy
     (engine/executor.py pack_result).
     """
 
@@ -268,28 +262,6 @@ def device_fn(
         return fn
 
     return _decorator
-
-
-@dataclass
-class DeviceResultMeta:
-    """Provenance of one device-chain result delivered to
-    ``on_device_result``."""
-
-    aliases: Tuple[str, ...]
-    acquisition_time: int  # ms clock of the newest frame in the bundle
-    submit_time: float  # time.monotonic() at submit
-    want_posts: bool = True  # which packed-result spec this bundle used
-    # batched chains: acquisition time of each FRESH lane (oldest first);
-    # None for unbatched chains
-    lane_acqs: Optional[List[int]] = None
-    # False only for the non-final lanes of a batched delivery: the result
-    # is a (drained) stale frame; posts are withheld and consumers that
-    # only care about the freshest state may skip work
-    newest: bool = True
-
-    def latency_ms(self) -> int:
-        """Camera-to-result latency of this bundle, in ms."""
-        return int(time.monotonic() * 1000) - self.acquisition_time
 
 
 @dataclass
@@ -869,9 +841,9 @@ class ModuleBase(ABC):
         self.device: torch.device = resolve_device(args.device)
         self._retry = True
 
-        # device-chain discovery result; populated on first use ("unset"
-        # sentinel so tests driving _loop directly still discover)
-        self._dev_spec: Any = "unset"
+        # the device lane of the @device_fn chain, or None; found on first
+        # use ("unset" sentinel so tests driving _loop directly still find it)
+        self._lane: Any = "unset"
 
         self._video_metadata: Dict[str, VideoSourceMetadata] = {}
         for source in src:
@@ -999,8 +971,8 @@ class ModuleBase(ABC):
 
         logger(f"Target FPS = {self._fps}", self._verbose)
 
-        if self._dev_spec == "unset":
-            self._dev_spec = self._discover_device_fn(logger)
+        if self._lane == "unset":
+            self._lane = DeviceLane.find(self, logger)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
             name = torch.cuda.get_device_name(self.device)
@@ -1043,7 +1015,7 @@ class ModuleBase(ABC):
                       "max_allocated_mib": torch.cuda.max_memory_allocated(self.device) / mib}
             logger(f"device memory: {json.dumps(memory)}", True)
         logger(f"Cleaning {self.__class__.__name__}", True)
-        if getattr(self, "_abandoned_inflight", False):
+        if self._lane is not None and self._lane.abandoned:
             # abandoned in-flight device work means runtime worker threads
             # are blocked inside calls that will not return; interpreter/
             # C++ teardown may then abort the process. All shm state
@@ -1087,157 +1059,36 @@ class ModuleBase(ABC):
                 )
         return handlers
 
-    def _discover_device_fn(
-        self, logger: Logger
-    ) -> Optional[
-        Tuple[Callable, Tuple[str, ...], int, bool, int, str, Optional[int]]
-    ]:
-        """Find the module's @device_fn method (at most one).
-
-        Returns (fn, aliases, depth, async_fetch, batch, batch_mode,
-        latest_only) or None."""
-        found: Optional[
-            Tuple[Callable, Tuple[str, ...], int, bool, int, str, Optional[int]]
-        ] = None
-        for attr_name in dir(self):
-            try:
-                maybe = getattr(self, attr_name)
-            except Exception:
-                continue
-            target = getattr(maybe, "__func__", maybe)
-            aliases = getattr(target, "_device_fn_aliases", None)
-            if not aliases:
-                continue
-            if found is not None:
-                raise RuntimeError(
-                    f"{self.__class__.__name__} registers more than one "
-                    "@device_fn; a module has exactly one device chain"
-                )
-            depth = getattr(target, "_device_fn_depth", 1)
-            async_fetch = getattr(target, "_device_fn_async", False)
-            batch = getattr(target, "_device_fn_batch", 1)
-            batch_mode = getattr(target, "_device_fn_batch_mode", "vmap")
-            latest_only = getattr(target, "_device_fn_latest_only", None)
-            if batch > 1 and len(aliases) != 1:
-                raise RuntimeError(
-                    "@device_fn(batch=N) requires a single source spec"
-                )
-            found = (
-                maybe,
-                tuple(aliases),
-                depth,
-                async_fetch,
-                batch,
-                batch_mode,
-                latest_only,
-            )
-            logger(
-                f"Registered device chain {attr_name} with aliases "
-                f"{aliases} (pipeline depth {depth}"
-                f"{', async fetch' if async_fetch else ''}"
-                f"{f', batch {batch}' if batch > 1 else ''})",
-                True,
-            )
-        return found
-
-    def _dispatch_device_result(self, done: Tuple[Any, Any]) -> None:
-        (packed, spec), meta = done
-        result, posts = unpack_result(packed, spec)
+    def _deliver(self, result: Any, posts: Dict[str, np.ndarray], meta: DeviceResultMeta) -> None:
         self._current_direction = meta.aliases[0]
-        if meta.lane_acqs is None:
-            self._current_acquisition_time = meta.acquisition_time
-            with tracer.span("on_device_result"):
-                self.on_device_result(result, posts, meta)
-            return
-        # batched chain: every leaf carries a leading [nlanes] axis; deliver
-        # one on_device_result per lane, oldest first. Debug posts go to the
-        # NEWEST lane only: older lanes would overwrite the same post blocks
-        # several times per tick with frames no GUI reader will ever see.
-        nlanes = len(meta.lane_acqs)
-        for i in range(nlanes):
-            is_newest = i == nlanes - 1
-            lane_result = tree_map(lambda x: x[i], result)
-            lane_posts = tree_map(lambda x: x[i], posts) if is_newest else {}
-            lane_meta = dataclasses.replace(
-                meta, acquisition_time=meta.lane_acqs[i], newest=is_newest
-            )
-            self._current_acquisition_time = meta.lane_acqs[i]
-            with tracer.span("on_device_result"):
-                self.on_device_result(lane_result, lane_posts, lane_meta)
+        self._current_acquisition_time = meta.acquisition_time
+        with tracer.span("on_device_result"):
+            self.on_device_result(result, posts, meta)
 
     def _loop(self, quit_flag: threading.Event, logger: Logger) -> None:
         # alias -> (frame, acquisition_time)
         frame_cache: Dict[str, Tuple[np.ndarray, int]] = {}
         ms_handlers = self._discover_handlers(logger)
-        covered_aliases = {a for _, aliases in ms_handlers for a in aliases}
+        handled_aliases = {a for _, aliases in ms_handlers for a in aliases}
         logged_missing: set = set()
 
-        if self._dev_spec == "unset":
-            self._dev_spec = self._discover_device_fn(logger)
-        dev = self._dev_spec
-        dev_exec = None
-        dev_aliases: Tuple[str, ...] = ()
-        dev_batch = 1
-        dev_latest_only: Optional[int] = None
-        if dev is not None:
-            (
-                dev_bound,
-                dev_aliases,
-                dev_depth,
-                dev_async,
-                dev_batch,
-                dev_batch_mode,
-                dev_latest_only,
-            ) = dev
-            # posts ride in the SAME single packed fetch as the result (one
-            # device->host copy per frame, u8 images at native width); each
-            # packed result carries its own unpack spec
-            dev_packed = build_packed_fn(dev_bound, dev_batch, dev_batch_mode)
-            dev_exec = StreamExecutor(
-                DevicePipeline(dev_packed, self.device),
-                depth=dev_depth,
-                async_fetch=dev_async,
-            )
-            # staging views must outlive the in-flight transfers
-            self._module_manager.set_staging_depth(dev_depth + 1)
-            covered_aliases |= set(dev_aliases)
-
-        # "$N" placeholder specs bind to the first alias arriving from the
-        # module's N-th video source (single-source modules whose source
-        # name comes from the command line)
-        src_index = {
-            name: i for i, name in enumerate(self._module_manager._video_sources)
-        }
-
-        def bind_placeholder(src_name: str, alias: str) -> None:
-            nonlocal dev_aliases
-            ph = f"${src_index.get(src_name, -1)}"
-            if ph in dev_aliases:
-                dev_aliases = tuple(alias if a == ph else a for a in dev_aliases)
-                covered_aliases.discard(ph)
-                covered_aliases.add(alias)
-
-        # queue-depth batching: once the batched alias's source is known,
-        # read_messages drains up to dev_batch unseen frames per tick
-        dev_batch_src: Optional[str] = None
-        batch_cache: Dict[str, Tuple[List[np.ndarray], List[int]]] = {}
+        if self._lane == "unset":
+            self._lane = DeviceLane.find(self, logger)
+        lane: Optional[DeviceLane] = self._lane
+        if lane is not None:
+            lane.open(list(self._module_manager._video_sources))
+            # the views of the last depth+1 reads stay valid. No transfer
+            # needs that (to_device has copied a frame when it returns);
+            # whether frame_cache's views across ticks do is unverified
+            self._module_manager.set_staging_depth(lane.depth + 1)
 
         while not quit_flag.is_set():
             tick_start = time.monotonic()
 
-            # with latest_only_backlog=M >= batch, drain M+1 frames so the
-            # backlog check can actually see past the batch size (the bus
-            # ring bounds the drain; sources default to 8 slots)
-            read_depth = dev_batch
-            if dev_latest_only is not None:
-                read_depth = max(dev_batch, dev_latest_only + 1)
-            batch_req = (
-                {dev_batch_src: read_depth} if dev_batch_src else None
-            )
             try:
                 with tracer.span("read_messages"):
                     video_messages = self._module_manager.read_messages(
-                        batch=batch_req
+                        batch=lane.read_request() if lane is not None else None
                     )
             except RuntimeError as e:
                 logger(f"Error: {e}", True)
@@ -1257,55 +1108,20 @@ class ModuleBase(ABC):
                     self._touch_metadata(source.name, image, acq_time)
                     self._current_direction = source.name
 
-                    if isinstance(image, tuple):
-                        aliases = self._plane_aliases_for(message)
-                        if aliases:
-                            bind_placeholder(source.name, aliases[0])
-                        for alias, frame in zip(aliases, image):
-                            frame_cache[alias] = (frame, acq_time)
-                            updated_aliases.add(alias)
-                            self._touch_metadata(alias, frame, acq_time)
-                            if alias not in covered_aliases:
-                                self._current_direction = alias
-                                self._current_acquisition_time = acq_time
-                                self.process(alias, frame)
-                        if dev_batch > 1 and dev_aliases and dev_aliases[0] in aliases:
-                            dev_batch_src = source.name
-                            if message.batch_data is not None:
-                                k = aliases.index(dev_aliases[0])
-                                batch_cache[dev_aliases[0]] = (
-                                    [f[k] for f in message.batch_data],
-                                    list(message.batch_acqs or []),
-                                )
-                    else:
-                        # single-plane frames also honor a bus plane name /
-                        # declared alias so @sources handlers match blocks
-                        # that aren't named like their alias (e.g. the
-                        # hypertune harness's private block)
-                        alias = source.name
-                        if (
-                            len(message.plane_names) == 1
-                            and str(message.plane_names[0])
-                        ):
-                            alias = str(message.plane_names[0])
-                        elif len(source.plane_aliases) == 1:
-                            alias = source.plane_aliases[0]
-                        bind_placeholder(source.name, alias)
-                        frame_cache[alias] = (image, acq_time)
+                    multi_plane = isinstance(image, tuple)
+                    planes = image if multi_plane else (image,)
+                    aliases = self._plane_aliases_for(message)
+                    if lane is not None:
+                        lane.note(source.name, aliases, message)
+                    for alias, frame in zip(aliases, planes):
+                        frame_cache[alias] = (frame, acq_time)
                         updated_aliases.add(alias)
-                        if alias != source.name:
-                            self._touch_metadata(alias, image, acq_time)
-                        if alias not in covered_aliases:
+                        if multi_plane or alias != source.name:
+                            self._touch_metadata(alias, frame, acq_time)
+                        if alias not in handled_aliases and (lane is None or alias not in lane.aliases):
                             self._current_direction = alias
                             self._current_acquisition_time = acq_time
-                            self.process(alias, image)
-                        if dev_batch > 1 and dev_aliases and alias == dev_aliases[0]:
-                            dev_batch_src = source.name
-                            if message.batch_data is not None:
-                                batch_cache[alias] = (
-                                    list(message.batch_data),
-                                    list(message.batch_acqs or []),
-                                )
+                            self.process(alias, frame)
                 elif message.status == ReadStatus.NO_NEW_FRAME:
                     if self._video_metadata[source.name].mark_as_dead():
                         logger(
@@ -1330,110 +1146,41 @@ class ModuleBase(ABC):
                     with tracer.span("handler", fn=handler.__name__):
                         handler(*imgs)
 
-            if dev_exec is not None:
-                fresh = all(a in frame_cache for a in dev_aliases) and any(
-                    a in updated_aliases for a in dev_aliases
-                )
-                if fresh:
-                    want_posts = not self._performance_enabled
-                    if dev_batch > 1:
-                        alias = dev_aliases[0]
-                        cached = batch_cache.pop(alias, None)
-                        if cached and cached[0]:
-                            lane_frames, lane_acqs = cached
-                        else:  # first tick (source not yet batch-read)
-                            lane_frames = [frame_cache[alias][0]]
-                            lane_acqs = [frame_cache[alias][1]]
-                        if (
-                            dev_latest_only is not None
-                            and len(lane_frames) > dev_latest_only
-                        ):
-                            # latest-wins on demand: past the backlog
-                            # threshold, stale frames drop instead of
-                            # batching (reference cmf.cpp:423 semantics).
-                            # Checked on the FULL drained backlog, before
-                            # the batch trim — else M >= batch never fires.
-                            lane_frames = lane_frames[-1:]
-                            lane_acqs = lane_acqs[-1:]
-                        else:
-                            lane_frames = lane_frames[-dev_batch:]
-                            lane_acqs = lane_acqs[-dev_batch:]
-                        # only the fresh lanes transfer & compute; in the
-                        # keep-up case this is a single [1,H,W,C] view, not
-                        # a padded batch-K copy
-                        if len(lane_frames) == 1:
-                            stacked = lane_frames[0][None]
-                        else:
-                            stacked = np.stack(lane_frames)
-                        frames = (stacked,)
-                        acq = lane_acqs[-1]
-                    else:
-                        frames = tuple(frame_cache[a][0] for a in dev_aliases)
-                        acq = max(frame_cache[a][1] for a in dev_aliases)
-                        lane_acqs = None
-                    meta = DeviceResultMeta(
-                        aliases=dev_aliases,
-                        acquisition_time=acq,
-                        submit_time=time.monotonic(),
-                        want_posts=want_posts,
-                        lane_acqs=lane_acqs,
-                    )
-                    ready = dev_exec.submit(
-                        frames,
-                        meta=meta,
-                        tuners=self._module_manager.tuner_scalars(),
-                        want_posts=want_posts,
-                    )
-                    for done in ready:
-                        self._dispatch_device_result(done)
-                elif dev_exec.pending:
-                    # no new bundle this tick — the device had a full frame
-                    # period to finish, so drain rather than hold the result
-                    if dev_exec.async_fetch:
-                        for done in dev_exec.poll():
-                            self._dispatch_device_result(done)
-                    else:
-                        done = dev_exec.flush_one()
-                        if done is not None:
-                            self._dispatch_device_result(done)
+            if lane is not None:
+                for delivery in lane.offer(
+                    frame_cache,
+                    updated_aliases,
+                    self._module_manager.tuner_scalars,
+                    want_posts=not self._performance_enabled,
+                ):
+                    self._deliver(*delivery)
 
             with tracer.span("drain_posts", n=len(self._post_queue)):
                 self._drain_post_queue()
             time.sleep(max((1 / self._fps) - (time.monotonic() - tick_start), 0))
 
-        if dev_exec is not None:
-            # bounded drain: a wedged device must not hang exit
-            for done in dev_exec.flush(timeout_s=15.0):
-                self._dispatch_device_result(done)
-            if dev_exec.pending:
-                logger(
-                    f"abandoning {dev_exec.pending} in-flight device "
-                    "result(s) at shutdown (device not delivering)",
-                    True,
-                )
-                self._abandoned_inflight = True
-            dev_exec.close()
+        if lane is not None:
+            for delivery in lane.close(logger):
+                self._deliver(*delivery)
             self._drain_post_queue()
-            # how each dispatch ran: eagerly, or as a CUDA graph
-            logger(f"graph calls: {json.dumps(dev_packed.graph_counts)}", True)
-            # how each camera array reached the card: staged or pageable
-            logger(f"h2d copies: {json.dumps(dev_exec.pipeline.h2d_counts)}", True)
 
     def _plane_aliases_for(self, message: VideoMessage) -> Tuple[str, ...]:
-        """Alias resolution for multi-plane frames: bus plane names win, then
-        declared aliases, then positional fallback (reference base.py:773-800)."""
-        image = message.data
-        assert isinstance(image, tuple)
-        if (
-            message.plane_names
-            and len(message.plane_names) == len(image)
-            and all(len(str(n)) > 0 for n in message.plane_names)
-        ):
-            return tuple(message.plane_names)
+        """The alias of each plane of a frame: bus plane names win, then
+        declared aliases, then a positional fallback (reference
+        base.py:773-800). A single-plane frame honours a bus plane name or
+        declared alias too, so @sources handlers match blocks that aren't
+        named like their alias (e.g. the hypertune harness's private
+        block), and falls back to its source's name."""
+        multi_plane = isinstance(message.data, tuple)
+        n = len(message.data) if multi_plane else 1
+        if len(message.plane_names) == n and all(len(str(p)) > 0 for p in message.plane_names):
+            return tuple(str(p) for p in message.plane_names)
         source = message.source
-        if source.plane_aliases and len(source.plane_aliases) == len(image):
+        if len(source.plane_aliases) == n:
             return source.plane_aliases
-        return tuple(f"{source.name}[{i}]" for i in range(len(image)))
+        if not multi_plane:
+            return (source.name,)
+        return tuple(f"{source.name}[{i}]" for i in range(n))
 
     def _drain_post_queue(self) -> None:
         # posts carry the CAMERA acquisition time of the frame that produced

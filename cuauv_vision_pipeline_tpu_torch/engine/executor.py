@@ -33,6 +33,8 @@ frame N while the host reads frame N+1 off the bus.
   fetches: the worker with async fetch, else the caller.
 
 There is no compile step: ``DevicePipeline.warmup`` just runs the chain once.
+A module's ``@device_fn`` reaches these through its device lane
+(engine/lane.py), which makes the three calls the benchmark harness makes.
 """
 
 from __future__ import annotations

@@ -197,20 +197,43 @@ def _pairs(order):
     return [(order[i][1], order[i + 1][1]) for i in range(0, len(order), 2)]
 
 
-def test_color_balance_posts_pairs_across_a_flag_change():
+def _fetch_threads() -> int:
+    """Live StreamExecutor fetch threads (a thread's default name ends with
+    its target's)."""
+    return sum(t.name.endswith("(_fetch_loop)") for t in threading.enumerate())
+
+
+# frame index -> the tuner values set before it
+FLAG_CHANGES = {
+    "switch": {3: dict(rgb_contrast_correct=True, horizontal_blocks=2)},
+    "slider": {i: dict(horizontal_blocks=i + 1) for i in range(16)},
+}
+
+
+@pytest.mark.parametrize("change", sorted(FLAG_CHANGES))
+def test_color_balance_posts_pairs_across_a_flag_change(change):
+    """Each pair posts in frame order, one frame late, and its ``balanced``
+    is ``balance`` of its frame under the config of its frame, across one
+    switch of two tuners and a slider swept through all 16 block counts;
+    the module keeps one executor (one fetch thread) whatever the number of
+    settings."""
+    threads = _fetch_threads()
     port = PortModule(tcb.ColorBalance, tcb.module_tuners)
-    frames = [_frame(t=0.2 * i) for i in range(6)]
+    changes = FLAG_CHANGES[change]
+    frames = [_frame(t=0.2 * i) for i in range(max(6, len(changes)))]
     configs = []
     for i, f in enumerate(frames):
-        if i == 3:
-            port.set(rgb_contrast_correct=True, horizontal_blocks=2)
+        port.set(**changes.get(i, {}))
         configs.append(port.module._config())
         port.module.process("forward", f)
-    for balanced, original in port.module._last_exec.flush():
+    for balanced, original in port.module._executor.flush():
         port.module._post_pair(balanced, original)
+    assert _fetch_threads() - threads == 1
     pairs = _pairs(port.order)
     assert len(pairs) == len(frames)
-    assert configs[0] == BalanceConfig() and configs[3] == BalanceConfig(rgb_contrast_correct=True, horizontal_blocks=2)
+    assert configs[0] == BalanceConfig(**changes.get(0, {}))
+    assert all(configs[i]._replace(**values) == configs[i] for i, values in changes.items())
+    assert len(set(configs)) == {"switch": 2, "slider": 16}[change]
     for (original, balanced), frame, cfg in zip(pairs, frames, configs):
         np.testing.assert_array_equal(original, frame)
         np.testing.assert_array_equal(balanced, balance(torch.from_numpy(frame), cfg).numpy())

@@ -1,6 +1,8 @@
 """The port's module path on the CPU: the real synthetic source and the real
 BuoyLAB module over the real frame bus (in-process threads, --device cpu);
-wire-format compatibility of tuner blocks and shm groups with the JAX
+a batched @device_fn's lane policy over the bus (latest-only past its
+backlog, posts on the newest lane only, lanes oldest first with their own
+acquisition times), each in a /dev/shm of its own; wire-format compatibility of tuner blocks and shm groups with the JAX
 package; and the port's independence from JAX.
 
 Results go to a uniquely named shm group, never the shared
@@ -20,7 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from test_torch_private_shm import opened_within
+from test_torch_private_shm import opened_within, run_private
 from torch_cpu_pool import CHILD_ENV  # and torch's CPU pool at one thread
 
 from cuauv_vision_pipeline_tpu.core import shm as jshm
@@ -28,7 +30,8 @@ from cuauv_vision_pipeline_tpu.core.base import ModuleManager as JModuleManager
 from cuauv_vision_pipeline_tpu.core.tuners import IntTuner as JIntTuner
 from cuauv_vision_pipeline_tpu_torch.capture_sources.synthetic import Synthetic
 from cuauv_vision_pipeline_tpu_torch.core import shm as tshm
-from cuauv_vision_pipeline_tpu_torch.core.base import ModuleReader, device_fn
+from cuauv_vision_pipeline_tpu_torch.core.base import ModuleBase, ModuleReader, device_fn
+from cuauv_vision_pipeline_tpu_torch.core.bindings.frame_bus import BlockAccessor
 from cuauv_vision_pipeline_tpu_torch.core.log import log
 from cuauv_vision_pipeline_tpu_torch.engine.chains import red_buoy_fused
 from cuauv_vision_pipeline_tpu_torch.modules import red_buoy
@@ -132,6 +135,78 @@ def test_red_buoy_module_on_zed_planes_of_any_direction(unique_direction, privat
                   argv=["--device", "cpu"])
     _drive(source, module, delivered)
     _check_delivered(delivered, results)
+
+
+# the device_fn options of each lane-policy case
+LANE_CASES = {
+    "latest_only": dict(batch=4, latest_only_backlog=1),
+    "newest_posts": dict(batch=4),
+    "lane_order": dict(batch=4, async_fetch=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LANE_CASES))
+def test_device_fn_lane_policy_over_the_bus(case, unique_direction):
+    """One frame, then a burst of three read in one batch: the port's
+    counterparts of the JAX package's latest-only and newest-lane-posts
+    module tests, and the burst's lanes delivered oldest first."""
+    run_private(lane_policy_scenario, case, unique_direction, timeout=120)
+
+
+def lane_policy_scenario(case: str, direction: str) -> None:
+    """In a child with a /dev/shm of its own: a writer puts frame 10, waits
+    for its result, then writes 20, 30 and 40 at once. fps=2: the burst,
+    written right after a result, lands inside one 500 ms tick and drains
+    in one batch read."""
+    seen = []
+
+    class Lanes(ModuleBase):
+        @device_fn(direction, **LANE_CASES[case])
+        def chain(self, image, *, tuners, want_posts):
+            posts = {"dbg": image} if want_posts else {}
+            return {"mean": image.float().mean(dim=(-3, -2, -1))}, posts
+
+        def on_device_result(self, result, posts, meta):
+            seen.append(dict(mean=round(float(result["mean"])), acq=meta.acquisition_time,
+                             current=self._current_acquisition_time, newest=meta.newest,
+                             posts=sorted(posts), lanes=meta.lane_acqs))
+
+    def wait_for(n):
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and len(seen) < n:
+            time.sleep(0.02)
+
+    frame = lambda v: np.full((32, 32, 3), v, np.uint8)  # noqa: E731
+    module = Lanes([direction], [], fps=2, argv=["--device", "cpu"])
+    quit_flag = threading.Event()
+    with opened_within(BlockAccessor(direction, max_entry_size_bytes=32 * 32 * 3, slot_count=8)) as writer:
+        with opened_within(module._module_manager):
+            loop = threading.Thread(target=module._loop, args=(quit_flag, log.t))
+            loop.start()
+            try:
+                writer.write_frame(1000, frame(10))
+                wait_for(1)
+                assert seen, "the first frame was never delivered"
+                for acq, v in ((2000, 20), (2001, 30), (2002, 40)):
+                    writer.write_frame(acq, frame(v))
+                wait_for(2 if case == "latest_only" else 4)
+            finally:
+                quit_flag.set()
+                loop.join(timeout=20)
+            assert not loop.is_alive()
+
+    print(seen)
+    first, burst = seen[0], seen[1:]
+    assert (first["mean"], first["acq"], first["newest"]) == (10, 1000, True), seen
+    assert all(s["current"] == s["acq"] for s in seen), seen
+    if case == "latest_only":
+        # backlog 3 > 1: only the newest frame dispatches, 20 and 30 drop
+        assert [(s["mean"], s["acq"]) for s in burst] == [(40, 2002)], seen
+        return
+    assert [(s["mean"], s["acq"]) for s in burst] == [(20, 2000), (30, 2001), (40, 2002)], seen
+    assert all(s["lanes"] == [2000, 2001, 2002] for s in burst), seen
+    # stale lanes: delivered, marked stale, no posts; the newest carries them
+    assert [(s["newest"], s["posts"]) for s in burst] == [(False, []), (False, []), (True, ["dbg"])], seen
 
 
 def test_module_refuses_to_start_without_cuda(monkeypatch, private_results):
